@@ -1,0 +1,141 @@
+"""Benchmark of the port: prints ONE JSON line with the headline metric.
+
+    python -m zkdl_tpu_torch.bench            # BENCH_CONFIG=zkdl256 (default)
+
+Same configurations, weight init and metric as the JAX package's bench.py
+(prover seconds per data point, the reference's unit): the model is built
+(quantize, setup, commit), inference runs once untimed, then the proving
+loop (chained Fiat-Shamir) runs twice, warm-up then timed. Progress goes to
+stderr. BENCH_CONFIG:
+  zkdl256 - 8-layer 18M-parameter MLP, batch 256 (the headline)
+  zkdl1   - the same model, batch 1
+  mid     - 4 layers, batch 32
+  micro   - 2 layers of width 64, batch 4
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+from .commit.pedersen import to_mont_rows
+from .curve import g1
+from .field import kernels
+from .models import mlp, quantize
+from .utils.runtime import resolve_device
+
+ZKDL_DIMS = [784, 1000, 1773, 1773, 1773, 1773, 1773, 1124, 1000]
+
+# (dims, batch, baseline s/point of the CUDA reference; proxies for mid/micro)
+CONFIGS = {
+    "zkdl256": (ZKDL_DIMS, 256, 0.1),
+    "zkdl1": (ZKDL_DIMS, 1, 7.21),
+    "mid": ([128, 256, 256, 128], 32, 0.1),
+    "micro": ([64, 64, 64], 4, 0.1),
+}
+
+
+def log(msg: str) -> None:
+    print(f"# {msg}", file=sys.stderr, flush=True)
+
+
+def make_weights(dims, rng: np.random.Generator) -> list[np.ndarray]:
+    """torch nn.Linear's default init range (bound 1/sqrt(fan_in)): keeps every
+    pre-activation inside the protocol's 2^47 magnitude bound."""
+    return [
+        rng.uniform(-1.0, 1.0, (dims[i], dims[i + 1])).astype(np.float32)
+        / np.sqrt(dims[i]).astype(np.float32)
+        for i in range(len(dims) - 1)
+    ]
+
+
+def launch_counts() -> dict[str, int]:
+    """Launch count of every hand-written kernel (K1-K4) so far."""
+    return {k.name: k.launches for k in (*kernels.KERNELS, g1.COMB)}
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def run(config: str = "zkdl256", device="cuda", split: bool = True) -> dict:
+    """Build, infer and prove one configuration. Returns the model, inputs,
+    outputs, proof and timings (seconds); with split=True one more proving
+    run is made with a device synchronize after every layer, for the
+    per-layer fc/relu seconds."""
+    dev = resolve_device(device)
+    dims, batch, baseline = CONFIGS[config]
+    rng = np.random.default_rng(0)
+    weights = make_weights(dims, rng)
+    t0 = time.perf_counter()
+    model = mlp.MLP.from_float_weights(weights, np.random.default_rng(0), dev)
+    _sync(dev)
+    build_s = time.perf_counter() - t0
+    log(f"model built ({model.n_params} params): {build_s:.3f}s")
+    X_np = rng.standard_normal((batch, dims[0])).astype(np.float32)
+    X = to_mont_rows(quantize.load_input(X_np, dev))
+
+    t0 = time.perf_counter()
+    Y_hat, Z_list, A_list, aux_list = model.infer(X)
+    _sync(dev)
+    infer_s = time.perf_counter() - t0
+    log(f"infer: {infer_s:.3f}s")
+
+    t0 = time.perf_counter()
+    proof, warm_spp = mlp.prove_timed(model, X, batch)
+    log(f"warmup done: {time.perf_counter() - t0:.3f}s, spp={warm_spp:.6f}")
+    before = launch_counts()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    proof, spp = mlp.prove_timed(model, X, batch)
+    per_prove = {k: v - before[k] for k, v in launch_counts().items()}
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else None
+    log(f"steady-state spp={spp:.6f}; kernel launches per prove: {json.dumps(per_prove)}; "
+        f"peak device memory {peak_gib} GiB")
+
+    layer_s = {}
+    if split:
+        marks = [time.perf_counter()]
+
+        def on_layer(kind: str, i: int) -> None:
+            _sync(dev)
+            now = time.perf_counter()
+            layer_s[f"{kind}[{i}]"] = now - marks[-1]
+            marks.append(now)
+
+        Y2, Z2, A2, aux2 = model.infer(X)
+        _sync(dev)
+        marks[0] = time.perf_counter()
+        model.prove(X, Y2, Z2, A2, aux2, on_layer=on_layer)
+        log("per-layer prove seconds: " + json.dumps(layer_s))
+    return {
+        "config": config, "dims": dims, "batch": batch, "baseline_spp": baseline,
+        "weights": weights, "X_np": X_np, "model": model, "X": X, "Y_hat": Y_hat,
+        "proof": proof, "build_s": build_s, "infer_s": infer_s,
+        "warm_prove_s": warm_spp * batch, "prove_s": spp * batch, "spp": spp,
+        "layer_s": layer_s, "launches_per_prove": per_prove, "prove_peak_gib": peak_gib,
+    }
+
+
+def main() -> None:
+    config = os.environ.get("BENCH_CONFIG", "zkdl256")
+    if config not in CONFIGS:
+        raise SystemExit(f"unknown BENCH_CONFIG {config!r}; one of {sorted(CONFIGS)}")
+    res = run(config, split=False)
+    log(f"device: {torch.cuda.get_device_name(0)}")
+    print(json.dumps({
+        "metric": f"prover_seconds_per_data_point[{config}]",
+        "value": res["spp"],
+        "unit": "s/point",
+        "vs_baseline": res["baseline_spp"] / res["spp"] if res["spp"] > 0 else None,
+    }))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,180 @@
+"""Pedersen multilinear commitment with split-and-fold opening, dlog fast path.
+
+Counterpart of the prover side of ``zkdl_tpu/commit/pedersen.py``:
+``Generators``, ``RowCommitments``, ``OpeningProof`` (:59-121), ``setup``
+(:134-143), ``commit`` with the dlog fast path (:157-171, :188-200) and
+``open_planar`` (:328-399).
+
+The setup draws every generator's discrete log itself (a transparent
+stand-in for an SRS, as the reference's demo does), so all G1 tensor work
+collapses to Fr arithmetic on the dlogs: a row commitment is
+G^(sum_i t_i r_i), each opening point a single G^sigma. The only G1 code
+is the fixed-base comb (``curve/g1.py:generator_pow``, kernel K4).
+
+Reference quirk kept: the opening's cross-term exponents are the Montgomery
+REPRESENTATION bits of the scalars (the R-scaled group elements), exactly as
+the JAX package and its verifier expect.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..curve import g1
+from ..field import fr, mp, planar
+from ..tensor import fr_ops
+from ..tensor import planar_ops as pops
+
+
+@dataclasses.dataclass
+class Generators:
+    """Generator vector; dlogs (Montgomery (n, 8)) are present in the
+    transparent setting: points[i] == unmont(dlogs[i]) * G. glv_safe is kept
+    for field parity with the JAX class (setup's points are in the order-r
+    subgroup by construction)."""
+
+    points: g1.G1Jac
+    dlogs: torch.Tensor | None = None
+    glv_safe: bool = False
+
+    @property
+    def size(self) -> int:
+        return self.points.x.shape[0]
+
+
+@dataclasses.dataclass
+class RowCommitments:
+    """Per-row Pedersen commitments; dlogs carried along on the fast path."""
+
+    points: g1.G1Jac  # (m,)
+    dlogs: torch.Tensor | None = None  # (m, 8) mont
+
+
+@dataclasses.dataclass
+class OpeningProof:
+    com_at_u_row: g1.G1Jac  # evaluation of the row-commitment vector at u_row
+    round_points: list  # per round: G1Jac of shape (3,): (temp, temp0, temp1)
+    final_gen: g1.G1Jac  # ()-shaped
+    final_scalar: torch.Tensor  # (8,) mont
+
+
+def random_fr(rng: np.random.Generator, n: int) -> np.ndarray:
+    """(n, 8) uint32 raw Fr values with the distribution of
+    zkdl_tpu/tensor/fr_ops.py:random_fr: 8 uniform u32 limbs, the top one
+    reduced mod P_TOP_LIMB."""
+    bits = rng.integers(0, 1 << 32, size=(n, 8), dtype=np.uint32)
+    bits[:, 7] %= np.uint32(fr.P_TOP_LIMB)
+    return bits
+
+
+def to_mont_rows(t: torch.Tensor) -> torch.Tensor:
+    """(n, 8) raw -> (n, 8) Montgomery (through the planar kernels)."""
+    return planar.from_planar(planar.to_mont(planar.to_planar(t))).contiguous()
+
+
+def from_mont_rows(t: torch.Tensor) -> torch.Tensor:
+    return planar.from_planar(planar.from_mont(planar.to_planar(t))).contiguous()
+
+
+def generators_from_dlogs(dlogs_mont: torch.Tensor) -> Generators:
+    """Generators for given Montgomery dlogs (n, 8): points = G^unmont(dlog)."""
+    points = g1.generator_pow(from_mont_rows(dlogs_mont))
+    return Generators(points=points, dlogs=dlogs_mont, glv_safe=True)
+
+
+def setup(rng: np.random.Generator, gen_size: int, device) -> Generators:
+    """Generator vector r_i * G for random raw r_i drawn from `rng`; the
+    dlogs are stored as mont(r_i) for Fr math (pedersen.py:setup)."""
+    scalars = torch.from_numpy(random_fr(rng, gen_size)).to(device)
+    points = g1.generator_pow(scalars)
+    return Generators(points=points, dlogs=to_mont_rows(scalars), glv_safe=True)
+
+
+def commit(gens: Generators, t: torch.Tensor) -> RowCommitments:
+    """Row commitments of t (m*gen_size, 8) Montgomery: sigma_row =
+    sum_i t_i * r_i (one lazy dot per row, K3), then G^unmont(sigma) (K4)."""
+    if gens.dlogs is None:
+        raise ValueError("commit needs the transparent setup (dlogs)")
+    gen_size = gens.size
+    if t.shape[0] % gen_size:
+        raise ValueError(f"commit: {t.shape[0]} rows not a multiple of {gen_size}")
+    m = t.shape[0] // gen_size
+    sigma = _commit_rows_fast(t.reshape(m, gen_size, 8), gens.dlogs)
+    return RowCommitments(points=g1.generator_pow(from_mont_rows(sigma)), dlogs=sigma)
+
+
+def _commit_rows_fast(t3: torch.Tensor, dlogs: torch.Tensor) -> torch.Tensor:
+    """(m, gen_size, 8) x (gen_size, 8) mont -> (m, 8) mont row sums."""
+    tp = t3.permute(2, 0, 1)  # (8, m, gen_size)
+    dp = planar.to_planar(dlogs)  # (8, gen_size)
+    return planar.from_planar(planar.dot(tp, dp[:, None, :])).contiguous()
+
+
+def open_planar(gens: Generators, t: torch.Tensor, com: RowCommitments, u) -> OpeningProof:
+    """Opening of t at host point u ((log_rows + log_gen, 8)): the scalar
+    side on the planar kernels, then every proof point (3 per round, final
+    generator, com(u_row)) in ONE comb launch."""
+    if gens.dlogs is None or com.dlogs is None:
+        raise ValueError("open_planar needs the transparent setup (dlogs)")
+    u = mp.host(u)
+    gen_size = gens.size
+    m = com.points.x.shape[0]
+    log_m = fr_ops.ceil_log2(m)
+    if gen_size != (1 << (u.shape[0] - log_m)):
+        raise ValueError(f"open_planar: gen size {gen_size} vs point {u.shape} and {log_m} row bits")
+    u_row = u[u.shape[0] - log_m :]
+    u_in = u[: u.shape[0] - log_m]
+    r = u_in.shape[0]
+    sigmas, final_scalar, final_dlog_exp, com_exp = _open_planar_scalars(
+        t, com.dlogs, gens.dlogs, u_row, u_in, gen_size
+    )
+    exps = torch.cat([sigmas, final_dlog_exp[None], com_exp[None]], dim=0)  # (3r+2, 8)
+    pts = g1.generator_pow(exps)
+    round_points = [
+        g1.G1Jac(pts.x[3 * i : 3 * i + 3], pts.y[3 * i : 3 * i + 3], pts.z[3 * i : 3 * i + 3])
+        for i in range(r)
+    ]
+    final_gen = g1.G1Jac(pts.x[3 * r], pts.y[3 * r], pts.z[3 * r])
+    com_at = g1.G1Jac(pts.x[3 * r + 1], pts.y[3 * r + 1], pts.z[3 * r + 1])
+    return OpeningProof(com_at, round_points, final_gen, final_scalar)
+
+
+def _open_planar_scalars(t, com_dlogs, gen_dlogs, u_row, u_in, gen_size):
+    """Scalar side of the opening (pedersen.py:_open_planar_scalars): the
+    u_row fold of t is one eq-weighted contraction over the row axis; the
+    split-and-fold rounds run on bit-reversed planar halves with four dots
+    per round (me_open_step)."""
+    dev = t.device
+    m = t.shape[0] // gen_size
+    lm = fr_ops.ceil_log2(m)
+    t3 = t.reshape(m, gen_size, 8)
+    if m < (1 << lm):
+        t3 = fr_ops.pad_to(t3, 1 << lm)
+    tp = pops.bitrev_axis(t3.permute(2, 1, 0), axis=1)  # (8, G, M2)
+    if lm:
+        row_table = pops.eq_table(u_row, dev)
+        t_f = planar.dot(tp, row_table[:, None, :])  # (8, G) bit-rev
+        com_sig = planar.dot(planar.to_planar(fr_ops.pad_to(com_dlogs, 1 << lm)), row_table)
+    else:
+        t_f = tp[:, :, 0]
+        com_sig = planar.to_planar(com_dlogs)[:, 0]
+    d = pops.bitrev_axis(planar.to_planar(gen_dlogs), axis=1)  # (8, G) bit-rev
+
+    sigmas = []
+    for i in range(u_in.shape[0]):
+        h = t_f.shape[1] // 2
+        s0, s1 = t_f[:, :h], t_f[:, h:]
+        d0, d1 = d[:, :h], d[:, h:]
+        dots = planar.dot_many([(d0, s0), (d1, s1), (d1, s0), (d0, s1)])  # (8, 4)
+        sigmas += [planar.add(dots[:, 0], dots[:, 1]), dots[:, 2], dots[:, 3]]
+        x = u_in[i]
+        t_f = planar.add(s0, planar.mul_scalar(planar.sub(s1, s0), x))
+        d = planar.add(d1, planar.mul_scalar(planar.sub(d0, d1), x))
+    final_scalar = t_f[:, 0].contiguous()
+    final_dlog_exp = planar.from_mont(d[:, 0:1])[:, 0]
+    com_exp = planar.from_mont(com_sig[:, None])[:, 0]
+    sig_arr = torch.stack(sigmas) if sigmas else torch.zeros((0, 8), dtype=torch.uint32, device=dev)
+    return sig_arr, final_scalar, final_dlog_exp, com_exp

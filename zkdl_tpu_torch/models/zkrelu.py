@@ -1,0 +1,205 @@
+"""zkReLU: quantized ReLU with compact auxiliary bit witnesses + its prover.
+
+Counterpart of ``zkdl_tpu/models/zkrelu.py``: the width constants (:43-46),
+``_width_consts``/``_split_mag`` (:81-118), ``forward_compact`` (:153-180),
+``ZkReluProof`` (:258-306), ``_layout_body``/``_claims_body`` (:352-394) and
+``prove_planar`` in grouped and chained modes (:419-507). Per element of the
+pre-activation X (Montgomery Fr at scale 2^32), x = unmont(X) read as a
+signed 48-bit fixed-point value: positive iff x <= 2^47 - 1; mag is x or
+x + 2^47 (biased, negative); rem is a signed 16-bit remainder; the output is
+sign * mont((mag - rem) >> 16), ReLU fused with the /2^16 requantization.
+All 64-bit math runs on int64 (lo, hi) u32 pairs, as the JAX code does on u32.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+from ..field import fr, mp, planar
+from ..sumcheck import planar_protocols as pp
+from ..sumcheck.transcript import ChallengeSource
+from ..tensor import fr_ops
+from ..tensor import planar_ops as pops
+
+LOG_Q, Q = 5, 32  # mag_rescaled bit width
+LOG_R, R = 4, 16  # remainder width (R-1 magnitude bits + sign)
+
+
+@functools.lru_cache(maxsize=None)
+def _width_consts(q: int, r: int):
+    tb = q + r - 1
+    return mp.limbs_from_int((1 << tb) - 1, 8), mp.limbs_from_int(1 << tb, 8)
+
+
+def _split_mag(X: torch.Tensor, q: int, r: int):
+    """(pos mask, rem_sign, rem_mag, mag_rescaled) per element, int64 (n,)."""
+    pos_max, bias = _width_consts(q, r)
+    x = mp.i64(planar.from_mont(planar.to_planar(X)))  # (8, n) raw, canonical
+    pos = mp.gte(mp.const(pos_max, x), x)
+    x_biased = mp.mod_add(fr.SPEC.P_limbs, x, mp.const(bias, x))
+    lo = torch.where(pos, x[0], x_biased[0])
+    hi = torch.where(pos, x[1], x_biased[1])
+    rem_sign = (lo >> (r - 1)) & 1
+    rem_mag = lo & ((1 << (r - 1)) - 1)
+    # mag - rem on the (lo, hi) pair:
+    #   rem >= 0: subtract rem_mag (borrow-free)
+    #   rem <  0: add (2^(r-1) - rem_mag), carrying into hi (mod 2^32)
+    lo_sum = lo + ((1 << (r - 1)) - rem_mag)
+    lo_neg = lo_sum & mp.M32
+    hi_neg = (hi + (lo_sum >> 32)) & mp.M32
+    lo2 = torch.where(rem_sign == 1, lo_neg, lo - rem_mag)
+    hi2 = torch.where(rem_sign == 1, hi_neg, hi)
+    mag_rescaled = ((lo2 >> r) | (hi2 << (32 - r))) & mp.M32
+    return pos, rem_sign, rem_mag, mag_rescaled
+
+
+def forward_compact(X: torch.Tensor):
+    """X: (n, 8) Montgomery. Returns (Z (n, 8), aux) with compact witnesses
+    {"sign_bits", "mag", "rem_bits16"}: uint32 (n,) each."""
+    n = X.shape[0]
+    pos, rem_sign, rem_mag, mag_rescaled = _split_mag(X, Q, R)
+    mag_limbs = torch.cat([mag_rescaled[None], torch.zeros((7, n), dtype=torch.int64, device=X.device)])
+    mag_mont = planar.to_mont(mp.u32(mag_limbs))
+    Zp = planar.select(pos, mag_mont, torch.zeros_like(mag_mont))
+    aux = {
+        "sign_bits": mp.u32(pos.to(torch.int64)),
+        "mag": mp.u32(mag_rescaled),
+        "rem_bits16": mp.u32(rem_mag | (rem_sign << (R - 1))),
+    }
+    return planar.from_planar(Zp).contiguous(), aux
+
+
+@dataclasses.dataclass
+class ZkReluProof:
+    # challenge vectors (recorded so the verifier in any challenge mode can replay)
+    u_z_bin: torch.Tensor
+    v_z_bin: torch.Tensor
+    u_r_bin: torch.Tensor
+    v_r_bin: torch.Tensor
+    u_recover: torch.Tensor
+    u_hp: torch.Tensor
+    v_hp: torch.Tensor
+    # sumcheck messages
+    mag_polys: torch.Tensor  # (log n + 5, 3, 8)
+    mag_final: torch.Tensor  # (8,)
+    rem_polys: torch.Tensor
+    rem_final: torch.Tensor
+    hp_polys: torch.Tensor
+    hp_finals: torch.Tensor  # (2, 8): X(v_hp), sign(v_hp)
+    # bit recombination folds at u_recover
+    mag_bits_at_u: torch.Tensor  # (Q, 8)
+    rem_bits_at_u: torch.Tensor  # (R, 8)
+    hp_claim: torch.Tensor  # (8,) MLE of X (.) sign at u_hp
+    # chained mode (None when unchained)
+    a_point: torch.Tensor | None = None  # (log n, 8)
+    a_polys: torch.Tensor | None = None  # (log n, 3, 8)
+    a_finals: torch.Tensor | None = None  # (2, 8): mont(mag)(v_a), sign(v_a)
+    x_at_va: torch.Tensor | None = None  # (8,)
+    # committed-aux tier of the JAX package: not produced by this prover
+    aux_coms: object | None = None
+    w_q: torch.Tensor | None = None
+    w_r: torch.Tensor | None = None
+    open_mag_bin: object | None = None
+    open_mag_rec: object | None = None
+    open_rem_bin: object | None = None
+    open_rem_rec: object | None = None
+    open_sign_hp: object | None = None
+    open_sign_rec: object | None = None
+
+
+def _layout_body(X, aux_mag, aux_rem, aux_sign, log_size, q, r):
+    """Challenge-independent layouts: bit matrices expanded into bit-reversed
+    flat storage for the binary sumchecks, X/sign bit-reversed for the
+    Hadamard, mont(mag) for the chained A-product; plus the plain-order
+    tensors the claims need."""
+    dev = X.device
+    n2 = 1 << log_size
+    pad = n2 - aux_mag.shape[0]
+    mag = torch.nn.functional.pad(mp.i64(aux_mag), (0, pad))
+    rem = torch.nn.functional.pad(mp.i64(aux_rem), (0, pad))
+    sign = torch.nn.functional.pad(mp.i64(aux_sign), (0, pad))
+    Xp = planar.to_planar(fr_ops.pad_to(X, n2))  # (8, n2) plain order
+
+    revn = torch.from_numpy(pops.bitrev_indices(log_size)).to(dev)
+    rev_q = torch.from_numpy(pops.bitrev_indices((q - 1).bit_length())).to(dev)
+    rev_r = torch.from_numpy(pops.bitrev_indices((r - 1).bit_length())).to(dev)
+
+    mag_bits = (mag[None, :] >> torch.arange(q, device=dev)[:, None]) & 1  # (q, n2)
+    rem_bits = (rem[None, :] >> torch.arange(r, device=dev)[:, None]) & 1  # (r, n2)
+    # binary-sumcheck inputs: stored[rev_q(k)*n2 + revn(j)] = bit_k(mag[j])
+    mag_rev = (mag_bits[rev_q][:, revn] == 1).reshape(-1)
+    rem_rev = (rem_bits[rev_r][:, revn] == 1).reshape(-1)
+
+    X_rev = mp.take(Xp, revn, 1)
+    sign_rev = sign[revn] == 1
+    mag_limbs = torch.cat([mag[None, :], torch.zeros((7, n2), dtype=torch.int64, device=dev)])
+    mag_mont_rev = mp.take(planar.to_mont(mp.u32(mag_limbs)), revn, 1)
+    return mag_rev, rem_rev, X_rev, sign_rev, mag_mont_rev, mag_bits, rem_bits, Xp, sign
+
+
+def _claims_body(mag_bits, rem_bits, Xp, sign, u_rec, u_hp):
+    """Recombination folds at u_rec, the Hadamard claim MLE(X (.) sign)(u_hp)
+    and X's MLE at u_rec."""
+    dev = Xp.device
+    E_rec = pops.eq_table(u_rec, dev)  # (8, n2) standard order
+    mag_at_u = planar.masked_sum(mag_bits == 1, E_rec)  # (8, q)
+    rem_at_u = planar.masked_sum(rem_bits == 1, E_rec)  # (8, r)
+    E_hp = pops.eq_table(u_hp, dev)
+    hp_claim = planar.dot(planar.select(sign == 1, Xp, torch.zeros_like(Xp)), E_hp)
+    x_at_u = planar.dot(Xp, E_rec)
+    return mag_at_u.transpose(0, 1).contiguous(), rem_at_u.transpose(0, 1).contiguous(), hp_claim, x_at_u
+
+
+def prove_planar(X: torch.Tensor, aux: dict, challenges: ChallengeSource, chain_point=None) -> ZkReluProof:
+    """Planar prover on compact aux. Draw order: u_z, v_z, u_r, v_r, u_rec,
+    u_hp, v_hp (the stream of zkdl_tpu's prove_planar).
+
+    Chained mode (chain_point = w, host (log n, 8), the downstream FC's
+    X-side point): also proves A = sign (.) mont(mag) with a Hadamard
+    sumcheck anchored at w, whose fold point v_a is u_rec, and emits X(v_a)."""
+    n = X.shape[0]
+    log_size = fr_ops.ceil_log2(n)
+    u_z = challenges.random_vec(log_size + LOG_Q)
+    v_z = challenges.random_vec(log_size + LOG_Q)
+    u_r = challenges.random_vec(log_size + LOG_R)
+    v_r = challenges.random_vec(log_size + LOG_R)
+    u_rec = challenges.random_vec(log_size)  # == v_a in chained mode
+    u_hp = challenges.random_vec(log_size)
+    v_hp = challenges.random_vec(log_size)
+
+    (mag_rev, rem_rev, X_rev, sign_rev, mag_mont_rev,
+     mag_bits, rem_bits, Xp, sign) = _layout_body(
+        X, aux["mag"], aux["rem_bits16"], aux["sign_bits"], log_size, Q, R)
+    mag_at_u, rem_at_u, hp_claim, x_at_u = _claims_body(
+        mag_bits, rem_bits, Xp, sign, u_rec.numpy(), u_hp.numpy())
+    mag_polys, mag_final = pp.binary_prove_bits(mag_rev, u_z, v_z)
+    rem_polys, rem_final = pp.binary_prove_bits(rem_rev, u_r, v_r)
+    hp_polys, hp_finals = pp.hadamard_prove_bits(X_rev, sign_rev, u_hp, v_hp)
+
+    a_polys = a_finals = x_at_va = a_point = None
+    if chain_point is not None:
+        if chain_point.shape[0] != log_size:
+            raise ValueError(f"chain point {tuple(chain_point.shape)} vs log size {log_size}")
+        # the recombination identity assumes no zero-padded tail
+        if n != (1 << log_size):
+            raise ValueError("chained mode requires a power-of-two size")
+        a_point = chain_point
+        a_polys, a_finals = pp.hadamard_prove_bits(mag_mont_rev, sign_rev, chain_point, u_rec)
+        x_at_va = x_at_u
+
+    proof = ZkReluProof(
+        u_z, v_z, u_r, v_r, u_rec, u_hp, v_hp,
+        mag_polys, mag_final, rem_polys, rem_final, hp_polys, hp_finals,
+        mag_at_u, rem_at_u, hp_claim,
+        a_point, a_polys, a_finals, x_at_va,
+    )
+    challenges.absorb_array(mag_polys)
+    challenges.absorb_array(rem_polys)
+    challenges.absorb_array(hp_polys)
+    if a_polys is not None:
+        challenges.absorb_array(a_polys)
+    return proof
