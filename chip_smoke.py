@@ -20,7 +20,6 @@ The line before the last is the kernels' JSON record; the last line is
 
 from __future__ import annotations
 
-import dataclasses
 import json
 import subprocess
 import sys
@@ -36,6 +35,7 @@ IMAD_PER_S = 16.7e12
 FR_MUL_IMAD = 2 * 2 * 8 * 8 + 8  # CIOS: 128 wide products (lo + hi) + 8 m's
 FP_MUL_IMAD = 2 * 2 * 12 * 12 + 12
 FP_MULS_PER_WINDOW = 11  # add_mixed, generic case
+Y_HAT_TOL = 1e-4  # zkdl256 Y_hat vs the float64 forward (see phase_zkdl256)
 
 
 def log(msg: str) -> None:
@@ -142,39 +142,53 @@ def phase_kernels(records: dict) -> None:
             raise AssertionError("g1_comb != plain")
     log("[kernels] g1_comb on 256 scalars (0, 1, r-1, 2^256-1 reduced) bit-equal to plain")
 
-    # times at the main path's largest shapes (zkdl256): 2^22-element round
-    # halves for K1-K3, the 35 opening points of a 2048-wide layer for K4
+    # the main path's largest shapes (zkdl256): 2^22-element round halves for
+    # K1-K3; the batched (8,2048,2048).(8,1,2048) dot of commit rows and the
+    # W fold (B=2048 rows, one block each); the 35 opening points and the
+    # 2048 commitment rows of a 2048-wide layer for K4
     n = 1 << 22
     a, b = _rand_fr(rng, n, dev), _rand_fr(rng, n, dev)
     s = scalars[-1]
-    fr_b = 32 * n
-    rows = {
-        "fr_mul": (lambda: kernels.mul(a, b), lambda: kernels.mul_plain(a, b),
-                   bound_ms(3 * fr_b, FR_MUL_IMAD * n), kernels.mul(a, b), kernels.mul_plain(a, b)),
-        "fr_mul_scalar": (lambda: kernels.mul_scalar(a, s), lambda: kernels.mul_scalar_plain(a, s),
-                          bound_ms(2 * fr_b, FR_MUL_IMAD * n), kernels.mul_scalar(a, s),
-                          kernels.mul_scalar_plain(a, s)),
-        "fr_dot": (lambda: kernels.dot(a, b), lambda: kernels.dot_plain(a, b),
-                   bound_ms(2 * fr_b + 32, FR_MUL_IMAD * n), kernels.dot(a, b), kernels.dot_plain(a, b)),
-    }
+    A = _rand_fr(rng, 2048 * 2048, dev).reshape(8, 2048, 2048)
+    T = _rand_fr(rng, 2048, dev).reshape(8, 1, 2048)
     sc35 = st[4:39].contiguous()
+    sc2048 = torch.from_numpy(np.resize(sc, (2048, 8))).to(dev)
+
+    def comb_err(scal) -> int:
+        return max_abs_err(torch.cat(list(g1.generator_pow(scal))), torch.cat(list(g1.generator_pow_plain(scal))))
+
+    errs = {
+        "fr_mul": max_abs_err(kernels.mul(a, b), kernels.mul_plain(a, b)),
+        "fr_mul_scalar": max_abs_err(kernels.mul_scalar(a, s), kernels.mul_scalar_plain(a, s)),
+        "fr_dot": max(max_abs_err(kernels.dot(a, b), kernels.dot_plain(a, b)),
+                      max_abs_err(kernels.dot(A, T), kernels.dot_plain(A, T))),
+        "g1_comb": max(comb_err(sc35), comb_err(sc2048)),
+    }
+    if any(errs.values()):
+        raise AssertionError(f"kernels differ from their plain versions at main-path shapes: {errs}")
+    log("[kernels] at main-path shapes, bit-equal to plain: fr_mul, fr_mul_scalar, fr_dot at (8, 2^22); "
+        "fr_dot at (8,2048,2048).(8,1,2048); g1_comb on 35 and on 2048 scalars")
+
+    fr_b = 32 * n
     nz = int(((g1._digits(sc35)) != 0).sum().item())
-    rows["g1_comb"] = (lambda: g1.generator_pow(sc35), lambda: g1.generator_pow_plain(sc35),
-                       bound_ms(35 * (32 + 3 * 48), nz * FP_MULS_PER_WINDOW * FP_MUL_IMAD),
-                       torch.cat(list(g1.generator_pow(sc35))), torch.cat(list(g1.generator_pow_plain(sc35))))
-    shapes = {"fr_mul": "(8, 2^22)", "fr_mul_scalar": "(8, 2^22)", "fr_dot": "(8, 2^22)", "g1_comb": "35 scalars"}
-    for name, (kfn, pfn, (bms, by), kout, pout) in rows.items():
+    rows = {
+        "fr_mul": ("(8, 2^22)", lambda: kernels.mul(a, b), lambda: kernels.mul_plain(a, b),
+                   bound_ms(3 * fr_b, FR_MUL_IMAD * n)),
+        "fr_mul_scalar": ("(8, 2^22)", lambda: kernels.mul_scalar(a, s), lambda: kernels.mul_scalar_plain(a, s),
+                          bound_ms(2 * fr_b, FR_MUL_IMAD * n)),
+        "fr_dot": ("(8, 2^22)", lambda: kernels.dot(a, b), lambda: kernels.dot_plain(a, b),
+                   bound_ms(2 * fr_b + 32, FR_MUL_IMAD * n)),
+        "g1_comb": ("35 scalars", lambda: g1.generator_pow(sc35), lambda: g1.generator_pow_plain(sc35),
+                    bound_ms(35 * (32 + 3 * 48), nz * FP_MULS_PER_WINDOW * FP_MUL_IMAD)),
+    }
+    for name, (shape, kfn, pfn, (bms, by)) in rows.items():
         ms = cuda_ms(kfn)
         pms = cuda_ms(pfn, iters=2)
         records[name] = {"ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
-                         "max_abs_err": max_abs_err(kout, pout), "library_ms": None}
-        log(f"[kernels] {name} at {shapes[name]}: {ms:.4f} ms (plain {pms:.2f} ms, bound {bms:.4f} ms by {by}; "
+                         "max_abs_err": errs[name], "library_ms": None}
+        log(f"[kernels] {name} at {shape}: {ms:.4f} ms (plain {pms:.2f} ms, bound {bms:.4f} ms by {by}; "
             "no single PyTorch call computes this)")
-    n2 = 2048
-    sc2048 = torch.from_numpy(np.resize(sc, (n2, 8))).to(dev)
     log(f"[kernels] g1_comb at 2048 scalars (one layer's commitment): {cuda_ms(lambda: g1.generator_pow(sc2048), 3):.3f} ms")
-    A = _rand_fr(rng, 2048 * 2048, dev).reshape(8, 2048, 2048)
-    T = _rand_fr(rng, 2048, dev).reshape(8, 1, 2048)
     bms, by = bound_ms(32 * 2048 * 2048 + 32 * 2048, FR_MUL_IMAD * 2048 * 2048)
     log(f"[kernels] fr_dot batched (8,2048,2048).(8,1,2048) (commit rows, W fold): "
         f"{cuda_ms(lambda: kernels.dot(A, T)):.4f} ms (bound {bms:.4f} ms by {by})")
@@ -185,26 +199,10 @@ def phase_kernels(records: dict) -> None:
 # ---------------------------------------------------------------------------
 
 
-def flatten(obj, path: str, out: dict) -> None:
-    """Proof tree -> {path: numpy array}, paths as zkdl_tpu/io/proof_io.py's."""
-    import torch
-
-    if dataclasses.is_dataclass(obj):
-        for f in dataclasses.fields(obj):
-            flatten(getattr(obj, f.name), f"{path}.{f.name}", out)
-    elif isinstance(obj, tuple) and hasattr(obj, "_fields"):
-        for name in obj._fields:
-            flatten(getattr(obj, name), f"{path}.{name}", out)
-    elif isinstance(obj, (list, tuple)):
-        for i, x in enumerate(obj):
-            flatten(x, f"{path}[{i}]", out)
-    elif isinstance(obj, torch.Tensor):
-        out[path] = obj.detach().cpu().numpy()
-
-
 def phase_small() -> None:
     from zkdl_tpu_torch.bench import make_weights
     from zkdl_tpu_torch.commit.pedersen import to_mont_rows
+    from zkdl_tpu_torch.io.proof_io import flatten
     from zkdl_tpu_torch.models import mlp, quantize
     from zkdl_tpu_torch.sumcheck.transcript import FiatShamir, SeededRng
 
@@ -300,31 +298,24 @@ def phase_zkdl256(records: dict) -> None:
     log(f"[zkdl256] {n_checked} sumchecks accepted by the host verifiers")
 
     # Y_hat is at scale 2^32 (input and weights at 2^16 each); each ReLU
-    # rescales by 2^16 with rounding. Quantization error per element is
-    # ~2^-17 and grows by ~0.6x per layer at this init, so the float64
-    # forward must agree to well under 1e-3.
+    # rescales by 2^16 with rounding. The weights and input come from fixed
+    # seeds, so the quantization error is the same every run: 9.9e-6 against
+    # |y| <= 4.6e-3. The tolerance is 10x that, 1e-4, about 2% of max |y|.
     y = planar.from_planar(planar.from_mont(planar.to_planar(res["Y_hat"])))
     from zkdl_tpu_torch.models import quantize
 
     got = quantize.dequantize(y, 32).reshape(res["batch"], -1)[:, : res["dims"][-1]]
     want = float_forward(res["weights"], res["X_np"])
-    err = float(np.abs(got - want).max())
-    log(f"[zkdl256] Y_hat vs float64 forward: max abs err {err:.3e} (|y| max {np.abs(want).max():.3e}), tolerance 1e-3")
-    if not np.isfinite(got).all() or err > 1e-3:
+    err, y_max = float(np.abs(got - want).max()), float(np.abs(want).max())
+    log(f"[zkdl256] Y_hat vs float64 forward: max abs err {err:.3e} ({err / y_max:.2e} of |y| max "
+        f"{y_max:.3e}), tolerance {Y_HAT_TOL:g}")
+    if got.shape != want.shape or not np.isfinite(got).all() or err > Y_HAT_TOL:
         raise AssertionError(f"Y_hat disagrees with the float64 forward: {err}")
     records["_zkdl256"] = {k: res[k] for k in ("build_s", "infer_s", "warm_prove_s", "prove_s", "spp",
                                                "prove_peak_gib", "launches_per_prove", "layer_s")}
 
 
 # ---------------------------------------------------------------------------
-
-
-SOURCES = {
-    "fr_mul": ("zkdl_tpu_torch/csrc/fr_kernels.cu", "zkdl_tpu/field/pallas_fr.py:156"),
-    "fr_mul_scalar": ("zkdl_tpu_torch/csrc/fr_kernels.cu", "zkdl_tpu/field/pallas_fr.py:163"),
-    "fr_dot": ("zkdl_tpu_torch/csrc/fr_kernels.cu", "zkdl_tpu/field/pallas_fr.py:186"),
-    "g1_comb": ("zkdl_tpu_torch/csrc/g1_comb.cu", "zkdl_tpu/curve/g1.py:378"),
-}
 
 
 def main() -> int:
@@ -347,10 +338,13 @@ def main() -> int:
     log(f"[time] phase 3: {time.perf_counter() - t0:.1f}s")
     phase_zkdl256(records)
     log(f"[time] phase 4: {time.perf_counter() - t0:.1f}s")
+    from zkdl_tpu_torch.curve import g1
+    from zkdl_tpu_torch.field import kernels
+
     kernels_line = []
-    for name, (src, rep) in SOURCES.items():
-        r = records[name]
-        kernels_line.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
+    for k in (*kernels.KERNELS, g1.COMB):
+        r = records[k.name]
+        kernels_line.append({"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
                              "launches": r["launches"], "max_abs_err": r["max_abs_err"],
                              "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                              "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

@@ -13,9 +13,9 @@ import jax
 import numpy as np
 import torch
 
-from chip_smoke import flatten
 from zkdl_tpu.tensor import fr_ops as jfr_ops
 from zkdl_tpu_torch.commit import pedersen
+from zkdl_tpu_torch.io.proof_io import flatten
 from zkdl_tpu_torch.models import convert, quantize, zkfc
 from zkdl_tpu_torch.sumcheck.transcript import SeededRng
 

@@ -3,13 +3,15 @@
     python -m zkdl_tpu_torch.profile_prove        # BENCH_CONFIG=zkdl256 (default)
 
 Builds the bench configuration, warms up, then profiles one steady proving
-run with torch.profiler (CPU and CUDA activity). Prints the wall time, the
-device's busy share (kernel time summed over the profiled run, over the
-unprofiled steady wall time: one stream, so kernels never overlap; the
-profiler slows the host, not the kernels), the count of kernel launches, and
-device time by
-kernel, the hand-written kernels (K1-K4) apart from PyTorch's own. The last
-line is the same record as JSON.
+run with torch.profiler (CPU and CUDA activity). Everything is read from that
+one profiled run: its wall time, the device time (kernels and copies summed;
+one stream, so they never overlap), the device's busy share over the span
+from the first kernel's start to the last kernel's end and over the run's
+wall, the count of kernel launches, and device time by kernel, the
+hand-written kernels (K1-K4) apart from PyTorch's own. The profiler slows the
+host, not the kernels, so the busy share under it is a lower bound of the
+unprofiled one. The unprofiled steady wall of bench.run is printed beside it
+for reference only. The last line is the same record as JSON.
 """
 
 from __future__ import annotations
@@ -52,26 +54,32 @@ def main() -> None:
         torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
     groups: dict[str, list] = {}
-    for row in prof.key_averages():
-        # device-side rows only (kernels, copies); CPU op rows repeat their
-        # kernels' time as their own device time
-        if row.device_type == torch.autograd.DeviceType.CUDA and row.self_device_time_total > 0:
-            g = groups.setdefault(_group(row.key), [0.0, 0])
-            g[0] += row.self_device_time_total / 1e6
-            g[1] += row.count
+    first, last = float("inf"), 0.0
+    for ev in prof.events():
+        # device-side events only (kernels, copies); CPU op events carry
+        # their kernels' time as their own device time
+        dur = ev.time_range.elapsed_us()
+        if ev.device_type != torch.autograd.DeviceType.CUDA or dur <= 0:
+            continue
+        g = groups.setdefault(_group(ev.name), [0.0, 0])
+        g[0] += dur / 1e6
+        g[1] += 1
+        first, last = min(first, ev.time_range.start), max(last, ev.time_range.end)
     busy = sum(g[0] for g in groups.values())
+    span = (last - first) / 1e6
     launches = sum(g[1] for g in groups.values())
     ranked = sorted(groups.items(), key=lambda kv: -kv[1][0])
     steady = res["prove_s"]
-    print(f"{config}: prove wall {wall:.3f}s under the profiler ({steady:.3f}s unprofiled), "
-          f"device busy {busy:.3f}s = {100 * busy / steady:.1f}% of the unprofiled wall, "
-          f"{launches} kernel launches")
+    print(f"{config}: profiled prove wall {wall:.3f}s, device busy {busy:.3f}s = "
+          f"{100 * busy / span:.1f}% of the {span:.3f}s kernel span, {100 * busy / wall:.1f}% of the wall; "
+          f"{launches} kernel launches (unprofiled steady prove of the same model: {steady:.3f}s)")
     for name, (secs, count) in ranked[:20]:
         print(f"  {secs * 1e3:10.2f} ms  {count:7d} launches  {name}")
     ours = sum(g[0] for n, g in groups.items() if not n.startswith("pytorch"))
     print(json.dumps({
         "config": config, "device": torch.cuda.get_device_name(dev), "profiled_wall_s": wall,
-        "steady_wall_s": steady, "device_busy_s": busy, "busy_share": busy / steady,
+        "kernel_span_s": span, "device_busy_s": busy, "busy_share": busy / span,
+        "busy_share_of_wall": busy / wall, "unprofiled_steady_wall_s": steady,
         "kernel_launches": launches,
         "handwritten_kernel_s": ours,
         "by_kernel": {n: {"s": s, "launches": c} for n, (s, c) in ranked[:20]},
