@@ -7,7 +7,10 @@ builds and runs.
 Phases (each prints its own lines; any failure exits nonzero):
   1. the card's name and power limit; build of every CUDA kernel from csrc/
   2. each kernel against its plain PyTorch version on the card, bit for bit,
-     with its time at a main-path shape beside its bound
+     with its time at a main-path shape beside its bound; K3 also at the
+     shapes where its design can break (one warp, the last-block reduction,
+     odd tails, every operand p - 1, dot_many of strided halves) and timed at
+     each main-path regime (flat, batched rows, dot_many of a round)
   3. a small model proved on the card and on the CPU (plain versions): every
      proof array identical, unchained SeededRng and chained Fiat-Shamir
   4. zkdl256 (8 layers at full width, batch 256) through the port's bench
@@ -33,6 +36,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 # peak (132 SMs at 1.98 GHz): 64 * 132 * 1.98e9.
 IMAD_PER_S = 16.7e12
 FR_MUL_IMAD = 2 * 2 * 8 * 8 + 8  # CIOS: 128 wide products (lo + hi) + 8 m's
+FR_DOT_IMAD = 2 * 8 * 8  # K3's lazy product: 64 wide products (lo + hi), no reduction
 FP_MUL_IMAD = 2 * 2 * 12 * 12 + 12
 FP_MULS_PER_WINDOW = 11  # add_mixed, generic case
 Y_HAT_TOL = 1e-4  # zkdl256 Y_hat vs the float64 forward (see phase_zkdl256)
@@ -59,6 +63,14 @@ def cuda_ms(fn, iters: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def same(label: str, got, want) -> None:
+    import torch
+
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"{label}: kernel != plain")
 
 
 def max_abs_err(a, b) -> int:
@@ -103,6 +115,43 @@ def _rand_fr(rng, n: int, device):
     return torch.from_numpy(np.ascontiguousarray(a.T)).to(device)
 
 
+def _rand_cols(rng, n: int, device):
+    """(8, n) random Fr for any n >= 1 (edge values where n allows)."""
+    return _rand_fr(rng, max(n, 8), device)[:, :n].contiguous()
+
+
+def _halves(rng, n: int, device):
+    """The four (8, n) halves of two (8, 2n) tensors, strided views as a
+    sumcheck round passes them, and their round's dot_many pairs."""
+    x, y = _rand_fr(rng, 2 * n, device), _rand_fr(rng, 2 * n, device)
+    x0, x1, y0, y1 = x[:, :n], x[:, n:], y[:, :n], y[:, n:]
+    return [(x0, y0), (x0, y1), (y0, x1), (x1, y1)]
+
+
+def phase_dot_shapes(rng, dev) -> None:
+    """K3 where its design can break, each bit-equal to plain: n <= 512 runs
+    one warp; 4096 spreads a slot over blocks and finishes in the last
+    block; odd n ends in the one-element tail; operands of p - 1 make every
+    product (p - 1)^2, the accumulator's worst case; dot_many reads strided
+    halves."""
+    import torch
+    from zkdl_tpu_torch.field import fr, kernels
+
+    for n in (1, 2, 3, 255, 256, 257, 4096):
+        a, b = _rand_cols(rng, n, dev), _rand_cols(rng, n, dev)
+        same(f"fr_dot n={n}", kernels.dot(a, b), kernels.dot_plain(a, b))
+    pm1 = torch.from_numpy(np.ascontiguousarray(np.repeat(fr.from_int(fr.P_INT - 1)[:, None], 1 << 22, 1))).to(dev)
+    same("fr_dot all p-1 (8, 2^22)", kernels.dot(pm1, pm1), kernels.dot_plain(pm1, pm1))
+    A, T = pm1.reshape(8, 2048, 2048), pm1[:, :2048].reshape(8, 1, 2048)
+    same("fr_dot all p-1 (8,2048,2048).(8,1,2048)", kernels.dot(A, T), kernels.dot_plain(A, T))
+    for n in (1 << 21, 1 << 10):
+        pairs = _halves(rng, n, dev)
+        for k in (3, 4):
+            same(f"fr_dot dot_many of {k} at n={n}", kernels.dot_many(pairs[:k]), kernels.dot_many_plain(pairs[:k]))
+    log("[kernels] fr_dot bit-equal to plain at n = 1, 2, 3, 255, 256, 257, 4096; all operands p-1 at (8, 2^22) "
+        "and (8,2048,2048).(8,1,2048); dot_many of 3 and 4 strided halves at n = 2^21 and 2^10")
+
+
 def phase_kernels(records: dict) -> None:
     import torch
     from zkdl_tpu_torch.curve import g1
@@ -129,6 +178,7 @@ def phase_kernels(records: dict) -> None:
     if not torch.equal(kernels.dot(A, T), kernels.dot_plain(A, T)):
         raise AssertionError("batched fr_dot != plain")
     log("[kernels] fr_dot (8,64,4096).(8,1,4096) bit-equal to plain")
+    phase_dot_shapes(rng, dev)
 
     sc = rng.integers(0, 1 << 32, size=(256, 8), dtype=np.uint32)
     sc[:, 7] %= np.uint32(fr.P_TOP_LIMB)
@@ -176,8 +226,6 @@ def phase_kernels(records: dict) -> None:
                    bound_ms(3 * fr_b, FR_MUL_IMAD * n)),
         "fr_mul_scalar": ("(8, 2^22)", lambda: kernels.mul_scalar(a, s), lambda: kernels.mul_scalar_plain(a, s),
                           bound_ms(2 * fr_b, FR_MUL_IMAD * n)),
-        "fr_dot": ("(8, 2^22)", lambda: kernels.dot(a, b), lambda: kernels.dot_plain(a, b),
-                   bound_ms(2 * fr_b + 32, FR_MUL_IMAD * n)),
         "g1_comb": ("35 scalars", lambda: g1.generator_pow(sc35), lambda: g1.generator_pow_plain(sc35),
                     bound_ms(35 * (32 + 3 * 48), nz * FP_MULS_PER_WINDOW * FP_MUL_IMAD)),
     }
@@ -189,9 +237,25 @@ def phase_kernels(records: dict) -> None:
         log(f"[kernels] {name} at {shape}: {ms:.4f} ms (plain {pms:.2f} ms, bound {bms:.4f} ms by {by}; "
             "no single PyTorch call computes this)")
     log(f"[kernels] g1_comb at 2048 scalars (one layer's commitment): {cuda_ms(lambda: g1.generator_pow(sc2048), 3):.3f} ms")
-    bms, by = bound_ms(32 * 2048 * 2048 + 32 * 2048, FR_MUL_IMAD * 2048 * 2048)
-    log(f"[kernels] fr_dot batched (8,2048,2048).(8,1,2048) (commit rows, W fold): "
-        f"{cuda_ms(lambda: kernels.dot(A, T)):.4f} ms (bound {bms:.4f} ms by {by})")
+
+    # K3 in each regime of the main path. Bounds count each distinct input
+    # once: a round's dot_many reads four halves, each in two of its pairs.
+    dot_rows = {"(8, 2^22)": (lambda: kernels.dot(a, b), lambda: kernels.dot_plain(a, b), 2 * fr_b + 32, n),
+                "(8,2048,2048).(8,1,2048)": (lambda: kernels.dot(A, T), lambda: kernels.dot_plain(A, T),
+                                             fr_b + 2 * 32 * 2048, n)}
+    for m in (1 << 21, 1 << 10):
+        pairs = _halves(rng, m, dev)
+        dot_rows[f"dot_many 4 x 2^{m.bit_length() - 1}"] = (
+            lambda p=pairs: kernels.dot_many(p), lambda p=pairs: kernels.dot_many_plain(p), 4 * 32 * m + 4 * 32, 4 * m)
+    shapes = records["_fr_dot_shapes"] = {}
+    for label, (kfn, pfn, n_bytes, n_prod) in dot_rows.items():
+        ms, pms = cuda_ms(kfn, 20), cuda_ms(pfn, iters=2)
+        bms, by = bound_ms(n_bytes, FR_DOT_IMAD * n_prod)
+        shapes[label] = {"ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by}
+        log(f"[kernels] fr_dot {label}: {ms:.4f} ms (plain {pms:.2f} ms, bound {bms:.4f} ms by {by}: "
+            f"{n_bytes / 1e6:.1f} MB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s vs {FR_DOT_IMAD * n_prod / 1e6:.0f}M IMAD "
+            f"at {IMAD_PER_S / 1e12:.1f}e12/s; {100 * bms / ms:.0f}% of the bound)")
+    records["fr_dot"] = {**shapes["(8, 2^22)"], "max_abs_err": errs["fr_dot"], "library_ms": None}
 
 
 # ---------------------------------------------------------------------------
@@ -348,7 +412,8 @@ def main() -> int:
                              "launches": r["launches"], "max_abs_err": r["max_abs_err"],
                              "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                              "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
-    print(json.dumps({"kernels": kernels_line, "zkdl256": records["_zkdl256"]}), flush=True)
+    print(json.dumps({"kernels": kernels_line, "fr_dot_shapes": records["_fr_dot_shapes"],
+                      "zkdl256": records["_zkdl256"]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

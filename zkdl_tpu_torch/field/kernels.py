@@ -12,13 +12,19 @@ first use) or raises: there is no fallback between the two.
 | dot/dot_many | K3 fr_dot          | pallas_fr.py:_dot_cols_kernel (:186)  |
 
 Bounds on an H100 (csrc/fr_kernels.cu has the derivation): all three are
-memory-bound, K1/K2 at 96/64 B per element, K3 at 64 B per element read.
+memory-bound, K1/K2 at 96/64 B per element, K3 at 64 B per element read
+(128 multiply-adds of its lazy product take less time than the bytes). K3
+serves ``dot`` and every ``dot_many`` call in one launch each; ``plan_dot``
+sets its grid.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
+import math
+import struct
 
 import numpy as np
 import torch
@@ -30,8 +36,15 @@ from .fr import SPEC
 N_LIMBS = 8
 SOURCE = "zkdl_tpu_torch/csrc/fr_kernels.cu"
 _PLAIN_CHUNK = 1 << 16  # columns per plain-version step (bounds its int64 temporaries)
-_DOT_THREADS = 256
-_DOT_TARGET_BLOCKS = 1056  # 8 blocks per SM on 132 SMs
+
+# K3 launch geometry (csrc/fr_kernels.cu:fr_dot_kernel)
+DOT_MAX_PAIRS = 8  # pairs of one dot_many launch
+DOT_MAX_THREADS = 128
+DOT_TARGET_BLOCKS = 792  # one wave over all slots: 6 blocks per SM (DOT_BLOCKS_PER_SM) on 132 SMs
+DOT_MIN_TERMS = 16  # products per thread before a slot takes more threads or blocks
+DOT_MAX_TERMS = 1 << 32  # products per thread the kernel's accumulator holds (MAX_TERMS_LOG2)
+DOT_SCRATCH_BLOCKS = 4096  # per-block partials and per-slot counters of one launch
+_MAX_GRID = (1 << 31) - 1
 
 
 @dataclasses.dataclass
@@ -59,7 +72,7 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_zk_typed", False):
         lib.zk_fr_mul.argtypes = [_P, _I, _P, _I, _P, _I, _P]
         lib.zk_fr_mul_scalar.argtypes = [_P, _I, _P, _P, _I, _P]
-        lib.zk_fr_dot.argtypes = [_P, _I, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P]
+        lib.zk_fr_dot.argtypes = [ctypes.c_char_p]
         for f in (lib.zk_fr_mul, lib.zk_fr_mul_scalar, lib.zk_fr_dot):
             f.restype = ctypes.c_int
         lib._zk_typed = True
@@ -97,6 +110,26 @@ def _rows(x: torch.Tensor):
     if r.shape[1] > 1 and r.stride(1) != 1:
         r = r.contiguous()
     return r, r.stride(0)
+
+
+def _broadcast(sa: torch.Size, sb: torch.Size) -> torch.Size:
+    """torch.broadcast_shapes of two shapes, without its host cost."""
+    if sa == sb:
+        return sa
+    d = len(sa) - len(sb)
+    sa, sb = (1,) * -d + tuple(sa), (1,) * d + tuple(sb)
+    out = []
+    for x, y in zip(sa, sb):
+        if x != y and 1 not in (x, y):
+            raise ValueError(f"shapes {sa} and {sb} do not broadcast")
+        out.append(y if x == 1 else x)
+    return torch.Size(out)
+
+
+def _unit_last(x: torch.Tensor) -> torch.Tensor:
+    """x itself when its last axis has unit stride (or one element), else a
+    contiguous copy."""
+    return x if x.shape[-1] <= 1 or x.stride(-1) == 1 else x.contiguous()
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -148,6 +181,71 @@ def dot_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return mp.u32(mp.reduce_digit_sums(SPEC, mp.digit_sums(prod), _lift_plain))
 
 
+def dot_many_plain(pairs) -> torch.Tensor:
+    """[(a, b), ...] -> (8, len(pairs), *batch): dot_plain of each pair. The
+    pairs may differ in length, not in batch shape."""
+    return torch.stack([dot_plain(a, b) for a, b in pairs], dim=1)
+
+
+# ---------------------------------------------------------------------------
+# K3 launch plan and scratch
+# ---------------------------------------------------------------------------
+
+
+def plan_dot(n: int, slots: int) -> tuple[int, int]:
+    """Grid of one K3 launch over `slots` dots of length n: (blocks per slot,
+    threads per block).
+
+    A slot takes as many warps (up to DOT_MAX_THREADS) and then blocks as
+    give each thread DOT_MIN_TERMS products, all slots together at most
+    about DOT_TARGET_BLOCKS blocks. Raises if a thread would add more
+    products than the kernel's accumulator holds, or the grid would exceed
+    its limit (the scratch's, when a slot spans several blocks)."""
+    if n < 0 or slots < 1:
+        raise ValueError(f"plan_dot: n={n}, slots={slots}")
+    want = -(-n // DOT_MIN_TERMS)
+    threads = min(DOT_MAX_THREADS, max(32, 1 << (max(want, 1) - 1).bit_length()))
+    G = max(1, min(-(-n // (threads * DOT_MIN_TERMS)), DOT_TARGET_BLOCKS // slots))
+    terms = 2 * -(-n // (2 * G * threads)) + 1  # two per loop step, one odd tail
+    if terms > DOT_MAX_TERMS or slots * G > (DOT_SCRATCH_BLOCKS if G > 1 else _MAX_GRID):
+        raise ValueError(f"plan_dot: n={n} over {slots} slots exceeds the kernel's limits")
+    return G, threads
+
+
+@functools.lru_cache(maxsize=None)
+def _dot_scratch(device: int, stream: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Partials and zeroed counters of the multi-block regime, one pair of
+    buffers per (device, stream), kept for the process: launches on one
+    stream run in order, and each launch leaves its counters at 0."""
+    dev = torch.device("cuda", device)
+    partials = torch.empty((DOT_SCRATCH_BLOCKS * N_LIMBS,), dtype=torch.uint32, device=dev)
+    return partials, torch.zeros((DOT_SCRATCH_BLOCKS,), dtype=torch.int32, device=dev)
+
+
+@functools.lru_cache(maxsize=None)
+def _dot_args(k: int) -> struct.Struct:
+    return struct.Struct(f"{10 + 6 * k}q")
+
+
+def _dot_launch(ops, n: int, B: int, device: torch.device) -> torch.Tensor:
+    """One K3 launch over the pairs `ops` ((a_ptr, sa0, sa1, b_ptr, sb0, sb1)
+    each, operands (8, B, n)) -> (8, len(ops) * B)."""
+    slots = len(ops) * B
+    out = torch.empty((N_LIMBS, slots), dtype=torch.uint32, device=device)
+    if slots == 0:
+        return out
+    G, threads = plan_dot(n, slots)
+    idx = device.index
+    stream = torch._C._cuda_getCurrentRawStream(idx)
+    partials, counters = _dot_scratch(idx, stream)
+    args = [len(ops), n, B, G, threads, idx, out.data_ptr(), partials.data_ptr(), counters.data_ptr(), stream]
+    for op in ops:
+        args.extend(op)
+    _check(_lib().zk_fr_dot(_dot_args(len(ops)).pack(*args)), "fr_dot")
+    DOT.launches += 1
+    return out
+
+
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
@@ -197,46 +295,48 @@ def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     a, b: planar (8, *batch, n); one of them may carry size-1 batch dims (a
     table shared by every batch entry, e.g. (8, M, n) . (8, 1, n)).
     Returns (8, *batch). Bit-identical to zkdl_tpu planar.dot / pallas_fr.dot.
+    One K3 launch.
     """
     _check_planar(a, b)
-    shape = torch.broadcast_shapes(a.shape, b.shape)
     if not _on_cuda(a, b):
         return dot_plain(a, b)
+    shape = _broadcast(a.shape, b.shape)
     n = shape[-1]
     batch = shape[1:-1]
-    B = int(np.prod(batch)) if batch else 1
+    B = math.prod(batch)
     if a.shape != shape:  # put the full operand first (the product commutes)
         a, b = b, a
     if a.shape != shape:
         raise ValueError(f"dot: neither operand has the full shape {tuple(shape)}")
-    out = torch.empty((N_LIMBS, B), dtype=torch.uint32, device=a.device)
-    if n == 0:
-        return out.zero_().reshape((N_LIMBS, *batch))
-    a3 = a.reshape(N_LIMBS, B, n)
-    if a3.stride(2) != 1:
-        a3 = a3.contiguous()
+    a3 = _unit_last(a.reshape(N_LIMBS, B, n))
     if b.shape == shape:
-        b3 = b.reshape(N_LIMBS, B, n)
-        if b3.stride(2) != 1:
-            b3 = b3.contiguous()
-        sb0, sb1 = b3.stride(0), b3.stride(1)
+        b3 = _unit_last(b.reshape(N_LIMBS, B, n))
+        sb1 = b3.stride(1)
     else:  # shared table: every batch entry reads the same (8, n)
-        b3 = b.reshape(N_LIMBS, n)
-        if b3.stride(1) != 1:
-            b3 = b3.contiguous()
-        sb0, sb1 = b3.stride(0), 0
-    G = max(1, min(-(-n // (_DOT_THREADS * 8)), _DOT_TARGET_BLOCKS // B))
-    partials = torch.empty((B * G * N_LIMBS,), dtype=torch.uint32, device=a.device)
-    with torch.cuda.device(a.device):
-        rc = _lib().zk_fr_dot(
-            a3.data_ptr(), a3.stride(0), a3.stride(1), b3.data_ptr(), sb0, sb1,
-            n, B, G, partials.data_ptr(), out.data_ptr(), _stream(a),
-        )
-    _check(rc, "fr_dot")
-    DOT.launches += 1
-    return out.reshape((N_LIMBS, *batch))
+        b3 = _unit_last(b.reshape(N_LIMBS, n))
+        sb1 = 0
+    op = (a3.data_ptr(), a3.stride(0), a3.stride(1), b3.data_ptr(), b3.stride(0), sb1)
+    return _dot_launch([op], n, B, a.device).reshape((N_LIMBS, *batch))
 
 
 def dot_many(pairs) -> torch.Tensor:
-    """[(a, b), ...] flat dots -> (8, len(pairs))."""
-    return torch.stack([dot(a, b) for a, b in pairs], dim=1)
+    """[(a, b), ...] flat dots -> (8, len(pairs)), in one K3 launch.
+
+    On the card every operand is (8, n) of one n (the halves of one sumcheck
+    round; strided views are read in place) and there are at most
+    DOT_MAX_PAIRS pairs; the plain version takes any shapes."""
+    pairs = list(pairs)
+    uniq = {id(t): t for p in pairs for t in p}  # a round's pairs share operands
+    ts = list(uniq.values())
+    _check_planar(*ts)
+    if not _on_cuda(*ts):
+        return dot_many_plain(pairs)
+    shape = ts[0].shape
+    if len(shape) != 2 or any(t.shape != shape for t in ts):
+        raise ValueError(f"dot_many: every operand must be one (8, n) shape, got {[tuple(t.shape) for t in ts]}")
+    if not 1 <= len(pairs) <= DOT_MAX_PAIRS:
+        raise ValueError(f"dot_many: {len(pairs)} pairs, 1 to {DOT_MAX_PAIRS} per launch")
+    unit = {k: _unit_last(t) for k, t in uniq.items()}  # copies live until after the launch
+    ptr = {k: (t.data_ptr(), t.stride(0)) for k, t in unit.items()}
+    ops = [(*ptr[id(a)], 0, *ptr[id(b)], 0) for a, b in pairs]
+    return _dot_launch(ops, shape[1], 1, ts[0].device)

@@ -29,8 +29,7 @@ from . import bench
 OURS = {
     "fr_mul_kernel": "K1 fr_mul",
     "fr_mul_scalar_kernel": "K2 fr_mul_scalar",
-    "fr_dot_partial_kernel": "K3 fr_dot",
-    "fr_dot_finalize_kernel": "K3 fr_dot",
+    "fr_dot_kernel": "K3 fr_dot",
     "g1_comb_kernel": "K4 g1_comb",
 }
 
