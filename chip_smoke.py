@@ -39,6 +39,7 @@ FR_MUL_IMAD = 2 * 2 * 8 * 8 + 8  # CIOS: 128 wide products (lo + hi) + 8 m's
 FR_DOT_IMAD = 2 * 8 * 8  # K3's lazy product: 64 wide products (lo + hi), no reduction
 FP_MUL_IMAD = 2 * 2 * 12 * 12 + 12
 FP_MULS_PER_WINDOW = 11  # add_mixed, generic case
+FP_LEVELS_PER_WINDOW = 5  # add_mixed's levels of dependent products (K4 runs each level's products side by side)
 Y_HAT_TOL = 1e-4  # zkdl256 Y_hat vs the float64 forward (see phase_zkdl256)
 
 
@@ -152,6 +153,49 @@ def phase_dot_shapes(rng, dev) -> None:
         "and (8,2048,2048).(8,1,2048); dot_many of 3 and 4 strided halves at n = 2^21 and 2^10")
 
 
+def comb_bound(scal) -> tuple[float, str]:
+    """K4's least time: scalars, the two (64, 16, 12) tables and the (n, 12)
+    x, y, z read or written once, against the multiply-adds of 11 Fp products
+    per nonzero window of these scalars."""
+    from zkdl_tpu_torch.curve import g1
+
+    n = scal.shape[0]
+    nz = int((g1._digits(scal) != 0).sum().item())
+    return bound_ms(n * 32 + 2 * 64 * 16 * 48 + n * 3 * 48, nz * FP_MULS_PER_WINDOW * FP_MUL_IMAD)
+
+
+def phase_comb_shapes(rng, dev) -> np.ndarray:
+    """K4 bit-equal to plain at every count where a group, a warp or a block
+    is partly filled (1, 2, 3, 7, 8, 9, 35, 256, 2048, 2049 scalars) and on
+    the edge scalars, at the head of every count's set: 0, 1, r - 1,
+    2^256 - 1 (top limb reduced, as setup draws it), r (the generic formula
+    ends in z = 0 at window 63: p = -q there) and 2^256 - r (window 63 adds
+    equal points: double). Returns the 2049 scalars."""
+    import torch
+    from zkdl_tpu_torch.curve import g1
+    from zkdl_tpu_torch.field import fr
+
+    def limbs(x: int) -> np.ndarray:
+        return np.array([(x >> (32 * i)) & 0xFFFFFFFF for i in range(8)], dtype=np.uint32)
+
+    top = np.full(8, 0xFFFFFFFF, dtype=np.uint32)
+    top[7] %= np.uint32(fr.P_TOP_LIMB)
+    edges = np.stack([limbs(0), limbs(1), limbs(fr.P_INT - 1), top, limbs(fr.P_INT), limbs((1 << 256) - fr.P_INT)])
+    sc = rng.integers(0, 1 << 32, size=(2049, 8), dtype=np.uint32)
+    sc[:, 7] %= np.uint32(fr.P_TOP_LIMB)
+    sc[: len(edges)] = edges
+    for n in (1, 2, 3, 7, 8, 9, 35, 256, 2048, 2049):
+        st = torch.from_numpy(sc[:n]).to(dev)
+        same(f"g1_comb n={n}", torch.cat(list(g1.generator_pow(st))), torch.cat(list(g1.generator_pow_plain(st))))
+    for i in range(len(edges)):  # each edge scalar alone in its group
+        st = torch.from_numpy(edges[i:i + 1]).to(dev)
+        same(f"g1_comb edge scalar {i}", torch.cat(list(g1.generator_pow(st))), torch.cat(list(g1.generator_pow_plain(st))))
+    log("[kernels] g1_comb bit-equal to plain at n = 1, 2, 3, 7, 8, 9, 35, 256, 2048, 2049, each set headed by the "
+        "edge scalars 0, 1, r-1, 2^256-1 (reduced), r (ends in z = 0 through the generic formula) and 2^256-r "
+        "(window 63 adds equal points: double), and each edge scalar alone")
+    return sc
+
+
 def phase_kernels(records: dict) -> None:
     import torch
     from zkdl_tpu_torch.curve import g1
@@ -180,17 +224,7 @@ def phase_kernels(records: dict) -> None:
     log("[kernels] fr_dot (8,64,4096).(8,1,4096) bit-equal to plain")
     phase_dot_shapes(rng, dev)
 
-    sc = rng.integers(0, 1 << 32, size=(256, 8), dtype=np.uint32)
-    sc[:, 7] %= np.uint32(fr.P_TOP_LIMB)
-    top = np.full(8, 0xFFFFFFFF, dtype=np.uint32)
-    top[7] %= np.uint32(fr.P_TOP_LIMB)  # 2^256 - 1 as setup draws it
-    sc[:4] = np.stack([fr.ZERO, fr.from_int(1), fr.from_int(fr.P_INT - 1), top])
-    st = torch.from_numpy(sc).to(dev)
-    got, want = g1.generator_pow(st), g1.generator_pow_plain(st)
-    for c, w in zip(got, want):
-        if not torch.equal(c, w):
-            raise AssertionError("g1_comb != plain")
-    log("[kernels] g1_comb on 256 scalars (0, 1, r-1, 2^256-1 reduced) bit-equal to plain")
+    sc = phase_comb_shapes(rng, dev)
 
     # the main path's largest shapes (zkdl256): 2^22-element round halves for
     # K1-K3; the batched (8,2048,2048).(8,1,2048) dot of commit rows and the
@@ -201,8 +235,8 @@ def phase_kernels(records: dict) -> None:
     s = scalars[-1]
     A = _rand_fr(rng, 2048 * 2048, dev).reshape(8, 2048, 2048)
     T = _rand_fr(rng, 2048, dev).reshape(8, 1, 2048)
-    sc35 = st[4:39].contiguous()
-    sc2048 = torch.from_numpy(np.resize(sc, (2048, 8))).to(dev)
+    sc35 = torch.from_numpy(sc[6:41]).to(dev)
+    sc2048 = torch.from_numpy(sc[:2048]).to(dev)
 
     def comb_err(scal) -> int:
         return max_abs_err(torch.cat(list(g1.generator_pow(scal))), torch.cat(list(g1.generator_pow_plain(scal))))
@@ -220,14 +254,13 @@ def phase_kernels(records: dict) -> None:
         "fr_dot at (8,2048,2048).(8,1,2048); g1_comb on 35 and on 2048 scalars")
 
     fr_b = 32 * n
-    nz = int(((g1._digits(sc35)) != 0).sum().item())
     rows = {
         "fr_mul": ("(8, 2^22)", lambda: kernels.mul(a, b), lambda: kernels.mul_plain(a, b),
                    bound_ms(3 * fr_b, FR_MUL_IMAD * n)),
         "fr_mul_scalar": ("(8, 2^22)", lambda: kernels.mul_scalar(a, s), lambda: kernels.mul_scalar_plain(a, s),
                           bound_ms(2 * fr_b, FR_MUL_IMAD * n)),
         "g1_comb": ("35 scalars", lambda: g1.generator_pow(sc35), lambda: g1.generator_pow_plain(sc35),
-                    bound_ms(35 * (32 + 3 * 48), nz * FP_MULS_PER_WINDOW * FP_MUL_IMAD)),
+                    comb_bound(sc35)),
     }
     for name, (shape, kfn, pfn, (bms, by)) in rows.items():
         ms = cuda_ms(kfn)
@@ -236,7 +269,20 @@ def phase_kernels(records: dict) -> None:
                          "max_abs_err": errs[name], "library_ms": None}
         log(f"[kernels] {name} at {shape}: {ms:.4f} ms (plain {pms:.2f} ms, bound {bms:.4f} ms by {by}; "
             "no single PyTorch call computes this)")
-    log(f"[kernels] g1_comb at 2048 scalars (one layer's commitment): {cuda_ms(lambda: g1.generator_pow(sc2048), 3):.3f} ms")
+    comb = records["_g1_comb_shapes"] = {}
+    for label, scal in (("35 scalars (one opening)", sc35), ("2048 scalars (setup, one layer's commitment)", sc2048)):
+        ms, (bms, by) = cuda_ms(lambda: g1.generator_pow(scal), 10), comb_bound(scal)
+        nz = int((g1._digits(scal) != 0).sum().item())
+        comb[label] = {"ms": ms, "bound_ms": bms, "bound_by": by}
+        log(f"[kernels] g1_comb at {label}: {ms:.4f} ms (bound {bms:.6f} ms by {by}: {nz} nonzero windows x "
+            f"{FP_MULS_PER_WINDOW} Fp products; the chain of one scalar is up to 64 windows x "
+            f"{FP_LEVELS_PER_WINDOW} = {64 * FP_LEVELS_PER_WINDOW} dependent Fp-product levels)")
+    for split in (1, 2):  # probe: other lane splits of the same kernel
+        for scal in (sc35, sc2048):
+            same(f"g1_comb split {split} n={scal.shape[0]}", torch.cat(list(g1.generator_pow(scal, _split=split))),
+                 torch.cat(list(g1.generator_pow_plain(scal))))
+            log(f"[probe] g1_comb split {split} at {scal.shape[0]} scalars: "
+                f"{cuda_ms(lambda: g1.generator_pow(scal, _split=split), 10):.4f} ms")
 
     # K3 in each regime of the main path. Bounds count each distinct input
     # once: a round's dot_many reads four halves, each in two of its pairs.
@@ -413,7 +459,7 @@ def main() -> int:
                              "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                              "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     print(json.dumps({"kernels": kernels_line, "fr_dot_shapes": records["_fr_dot_shapes"],
-                      "zkdl256": records["_zkdl256"]}), flush=True)
+                      "g1_comb_shapes": records["_g1_comb_shapes"], "zkdl256": records["_zkdl256"]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -3,25 +3,58 @@
 // Replaces zkdl_tpu/curve/g1.py:generator_pow (:378-397), a lax.fori_loop of
 // 64 add_mixed (:135-158) + select steps over 12-limb Montgomery Fp (XLA on
 // the TPU, no Pallas kernel). Every Pedersen row commitment and every opening
-// point of the prover goes through it.
+// point of the prover goes through it: 35 scalars per opening, 2048 per
+// setup or layer commitment.
 //
-// One thread per scalar walks the 64 4-bit windows LSB-first with the point
-// in registers and the host-built comb table (g1.py:_comb_table layout
-// (64, 16, 12), Montgomery affine x and y; 98 KB, so global memory through
-// the read-only cache rather than the 64 KB constant bank). The formulas are
-// g1.py's add_mixed (madd-2007-bl) and double (dbl-2009-l), value for value:
-// the Jacobian limbs are absorbed by the Fiat-Shamir transcript, so a point
-// that were only equal in affine form would change every later challenge.
-// The branchless selects of the JAX code become branches with the same
-// outcome: a zero digit keeps the point (g1.py:394-395), an identity point
-// takes the lifted table entry, equal points take double(p).
+// What it computes is fixed down to the limb: the Jacobian limbs are absorbed
+// by the Fiat-Shamir transcript, so each scalar walks the 64 4-bit windows
+// LSB first with the host-built comb table (g1.py:_comb_table, (64, 16, 12)
+// Montgomery affine x and y; 98 KB, read through the read-only path), and
+// every window does g1.py's add_mixed (madd-2007-bl) value for value. The
+// branchless selects of the JAX code become branches with the same outcome:
+// a zero digit keeps the point, an identity point takes the lifted entry
+// (qx, qy, mont(1)), equal points take double(p) (dbl-2009-l, g1.py:90-103),
+// and p = -q runs the generic formula to z3 = 0. Every Fp value is canonical
+// (< p), so how a product or sum is computed is free.
 //
-// What bounds it on an H100: integer multiplies. One window costs 11 Fp
-// products (18 when the points coincide), each a 12-limb CIOS of 288
-// 32x32->64 multiply-adds; bytes are negligible (32 B in, 144 B out per
-// scalar). On the prover's call sizes (35 scalars per opening, 2048 per
-// commitment) the card is far from full: the time is one thread's latency
-// through ~700 dependent Fp products.
+// What bounds it on an H100: not the multiply rate (the prover's calls need
+// well under a microsecond of the card's IMAD throughput) but the chain of
+// dependent Fp products of one scalar. add_mixed has 5 levels of products
+// that depend on each other: {z1z1 = z^2, qyz = qy z}, {u2, s2}, {hh = h^2,
+// rr = r^2, zh2 = (z + h)^2}, {j = h i, v = x i}, {(v - x3) r, y j}; 64
+// windows x 5 = 320 product levels a scalar, plus the adds and subs between
+// them. A one-thread 12-limb product is a long carry chain.
+//
+// The design: a group of GROUP_LANES lanes serves one scalar, split into
+// TEAMS teams of TEAM_LANES lanes. Every team holds the whole point, each
+// lane LW = 12 / TEAM_LANES consecutive 32-bit limbs of every Fp value. The
+// products of one level run side by side, one per team (a level of more
+// products than teams takes more rounds), and each result reaches every team
+// by a shuffle (the teams lay out limbs alike). A Montgomery product is
+// operand scanning over b's 12 limbs spread over a team: b_i is shuffled from
+// its lane; each lane adds its LW limbs of a b_i and then m p (m = t_0 p' mod
+// 2^32, computed from the team's lane 0 and shuffled) with carry chains only
+// LW words long; the accumulator shifts one word down the team with one
+// shuffle. A lane's carry out of its top word stays pending (e) and is added
+// where that word lands after the shift, so lane 0's words never have a
+// carry pending into them and t_0 is exact for the next m. Bounds, with
+// words < 2^32: each wide multiply-add a * b + t + c <= 2^64 - 1; during a
+// step e < 4 + 2 * 2^32; after the shift e < 4. After the 12 steps the
+// pending e (< 4) go up one lane, and the carries this leaves between lanes
+// are resolved at once by a lookahead on two ballots (generate: the lane's
+// add carried out; propagate: its words are all ones; carry-in = ((G << 1) +
+// P) ^ P). The product is then < 2p and the conditional subtract of p
+// decides with the same lookahead on borrows. add, sub and double use the
+// same lookahead. The point's branches (identity, equal points) and a zero
+// digit are decided once per group (every lane holds the same values), so a
+// group never diverges; two groups of a warp may, and every shuffle and
+// ballot names only its team's or group's lanes.
+//
+// Grid: 128-thread blocks, 128 / GROUP_LANES scalars a block, one group per
+// scalar; a group past n exits whole.
+//
+// C interface (loaded with ctypes): zk_g1_comb launches on the given stream
+// and device and returns cudaGetLastError().
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -33,148 +66,411 @@ namespace {
 constexpr int NL = FpSpec::N;
 constexpr int WINDOWS = 64;
 constexpr int ENTRIES = 16;
-constexpr int THREADS = 64;
+constexpr int THREADS = 128;
+constexpr int TEAM_LANES = 4;  // lanes a team
+constexpr int TEAMS = 4;       // teams a scalar
 
-struct Pt {
-  uint32_t x[NL], y[NL], z[NL];
+__device__ __forceinline__ uint32_t one_mont(int i) {  // mont(1) = 2^384 mod p
+  constexpr uint32_t ONE[NL] = {0x0002fffdu, 0x76090000u, 0xc40c0002u, 0xebf4000bu,
+                                0x53c758bau, 0x5f489857u, 0x70525745u, 0x77ce5853u,
+                                0xa256ec6du, 0x5c071a97u, 0xfa80e493u, 0x15f65ec3u};
+  return ONE[i];
+}
+
+template <int TL, int NT>
+struct Team {
+  static constexpr int LW = NL / TL;  // limbs a lane
+  static constexpr int GL = TL * NT;  // lanes a scalar
+  static_assert(NL % TL == 0 && 32 % GL == 0 && GL >= 8,
+                "a team splits 12 limbs; a group divides a warp and holds the scalar's 8 words");
+  static constexpr uint32_t TEAM_BITS = (1u << TL) - 1;
+
+  struct F {
+    uint32_t w[LW];
+  };
+  struct Pt {
+    F x, y, z;
+  };
+
+  int k;     // lane within the team
+  int team;  // team within the group
+  int g;     // lane within the group
+  int tbase;
+  unsigned tmask, gmask;
+  F p, one;  // this lane's limbs of p and of mont(1)
+
+  __device__ explicit Team(int lane) {
+    g = lane % GL;
+    k = g % TL;
+    team = g / TL;
+    tbase = lane - k;
+    tmask = TEAM_BITS << tbase;
+    gmask = GL == 32 ? 0xffffffffu : ((1u << GL) - 1) << (lane - g);
+#pragma unroll
+    for (int i = 0; i < NL; ++i) {
+      if (i / LW == k) {
+        p.w[i % LW] = FpSpec::p(i);
+        one.w[i % LW] = one_mont(i);
+      }
+    }
+  }
+
+  // --- lane-local words ----------------------------------------------------
+
+  __device__ static uint32_t add_words(const F& x, const F& y, uint32_t c, F& s) {
+#pragma unroll
+    for (int j = 0; j < LW; ++j) {
+      const uint64_t v = (uint64_t)x.w[j] + y.w[j] + c;
+      s.w[j] = (uint32_t)v;
+      c = (uint32_t)(v >> 32);
+    }
+    return c;
+  }
+  __device__ static uint32_t sub_words(const F& x, const F& y, uint32_t b, F& d) {
+#pragma unroll
+    for (int j = 0; j < LW; ++j) {
+      const uint64_t v = (uint64_t)x.w[j] - y.w[j] - b;
+      d.w[j] = (uint32_t)v;
+      b = (uint32_t)(v >> 63);
+    }
+    return b;
+  }
+  __device__ static bool all_ones(const F& x) {
+    uint32_t a = 0xffffffffu;
+#pragma unroll
+    for (int j = 0; j < LW; ++j) a &= x.w[j];
+    return a == 0xffffffffu;
+  }
+  __device__ static bool same(const F& x, const F& y) {
+    uint32_t a = 0;
+#pragma unroll
+    for (int j = 0; j < LW; ++j) a |= x.w[j] ^ y.w[j];
+    return a == 0;
+  }
+  __device__ static bool nonzero(const F& x) {
+    uint32_t a = 0;
+#pragma unroll
+    for (int j = 0; j < LW; ++j) a |= x.w[j];
+    return a != 0;
+  }
+  __device__ static F pick(bool c, const F& x, const F& y) {
+    F r;
+#pragma unroll
+    for (int j = 0; j < LW; ++j) r.w[j] = c ? x.w[j] : y.w[j];
+    return r;
+  }
+
+  // --- team-wide carries ---------------------------------------------------
+  //
+  // Every add, sub and product ends in a two-stage operation over the team:
+  // stage 1 adds (subtracts) two values, stage 2 subtracts (adds) p. Each
+  // lane computes the carry out of its words for every carry-in it could
+  // get: stage 1 for in = 0 and 1, stage 2 for each stage-1 carry-in and
+  // each stage-2 carry-in. One REDUX gathers these six flags of every lane,
+  // and every lane resolves both stages' carries from them by lookahead:
+  // with G = the lanes that carry out on in = 0 and P = the lanes that carry
+  // out only on in = 1, the carry-ins are ((G << 1) + P) ^ P and bit TL of
+  // (G << 1) + P is the carry out of the team.
+
+  // OR over the team of each lane's flags shifted to its lane's bit: one
+  // shuffle from each lane (a ballot or REDUX over part of a warp takes a
+  // slow path on Hopper, some 550 and 850 cycles against 32 for a shuffle).
+  __device__ uint32_t team_or(uint32_t mine) const {
+    uint32_t all = 0;
+#pragma unroll
+    for (int j = 0; j < TL; ++j) all |= __shfl_sync(tmask, mine, j, TL) << j;
+    return all;
+  }
+
+  struct Carries {
+    uint32_t in1, in2;    // this lane's carry-in of stage 1, stage 2
+    uint32_t top1, top2;  // the team's carry out of stage 1, stage 2
+  };
+
+  // o1[c]: stage-1 carry out for carry-in c; o2[c][b]: stage-2 carry out for
+  // stage-1 carry-in c and stage-2 carry-in b.
+  __device__ Carries resolve(bool o10, bool o11, bool o200, bool o201, bool o210, bool o211) const {
+    const uint32_t mine = (uint32_t)o10 | (uint32_t)o11 << TL | (uint32_t)o200 << 2 * TL |
+                          (uint32_t)o201 << 3 * TL | (uint32_t)o210 << 4 * TL | (uint32_t)o211 << 5 * TL;
+    const uint32_t all = team_or(mine);
+    const uint32_t G1 = all & TEAM_BITS, P1 = (all >> TL) & ~G1 & TEAM_BITS;
+    const uint32_t S1 = (G1 << 1) + P1, C1 = (S1 ^ P1) & TEAM_BITS;
+    const uint32_t G2 = (((all >> 2 * TL) & ~C1) | ((all >> 4 * TL) & C1)) & TEAM_BITS;
+    const uint32_t P2 = (((all >> 3 * TL) & ~C1) | ((all >> 5 * TL) & C1)) & ~G2 & TEAM_BITS;
+    const uint32_t S2 = (G2 << 1) + P2;
+    return {(C1 >> k) & 1u, ((S2 ^ P2) >> k) & 1u, S1 >> TL, S2 >> TL};
+  }
+
+  // (x + y) mod p for x + y < 2p: stage 1 x + y, stage 2 minus p, kept when
+  // it does not borrow out of the team.
+  __device__ F add_reduce(const F& x, const F& y) const {
+    F s0, s1, d;
+    const bool o10 = add_words(x, y, 0, s0);
+    const bool o11 = o10 || all_ones(s0);
+    add_words(s0, F{}, 1, s1);
+    const bool o200 = sub_words(s0, p, 0, d), o201 = o200 || same(s0, p);
+    const bool o210 = sub_words(s1, p, 0, d), o211 = o210 || same(s1, p);
+    const Carries c = resolve(o10, o11, o200, o201, o210, o211);
+    const F s = pick(c.in1, s1, s0);
+    sub_words(s, p, c.in2, d);
+    return c.top2 ? s : d;
+  }
+  __device__ F add(const F& x, const F& y) const { return add_reduce(x, y); }
+  __device__ F dbl(const F& x) const { return add_reduce(x, x); }
+
+  // (x - y) mod p: stage 1 x - y, stage 2 plus p, taken when stage 1 borrows
+  // out of the team (the carry out of stage 2 is dropped).
+  __device__ F sub(const F& x, const F& y) const {
+    F d0, d1, s;
+    const bool o10 = sub_words(x, y, 0, d0);
+    const bool o11 = o10 || same(x, y);
+    sub_words(d0, F{}, 1, d1);
+    const bool o200 = add_words(d0, p, 0, s), o201 = o200 || all_ones(s);
+    const bool o210 = add_words(d1, p, 0, s), o211 = o210 || all_ones(s);
+    const Carries c = resolve(o10, o11, o200, o201, o210, o211);
+    const F d = pick(c.in1, d1, d0);
+    add_words(d, p, c.in2, s);
+    return c.top1 ? s : d;
+  }
+
+  // One row of the product: t += x * y over this lane's words; the carry out
+  // of its top word is added to e.
+  __device__ static void row(uint32_t (&t)[LW], const F& x, uint32_t y, uint64_t& e) {
+    uint32_t c = 0;
+#pragma unroll
+    for (int j = 0; j < LW; ++j) {
+      const uint64_t v = (uint64_t)x.w[j] * y + t[j] + c;  // <= 2^64 - 1
+      t[j] = (uint32_t)v;
+      c = (uint32_t)(v >> 32);
+    }
+    e += c;
+  }
+
+  // Shift one word down the team: the new top word is `up` plus the carry
+  // pending into it.
+  __device__ static void shift(uint32_t (&t)[LW], uint32_t up, uint64_t& e) {
+#pragma unroll
+    for (int j = 0; j + 1 < LW; ++j) t[j] = t[j + 1];
+    const uint64_t v = (uint64_t)up + e;
+    t[LW - 1] = (uint32_t)v;
+    e = v >> 32;
+  }
+
+  // a * b * 2^-384 mod p over the team (see the note at the top).
+  __device__ F mul(const F& a, const F& b) const {
+    uint32_t bl[NL];  // b's limbs and lane 0's limbs of a and p, on every lane
+#pragma unroll
+    for (int i = 0; i < NL; ++i) bl[i] = __shfl_sync(tmask, b.w[i % LW], i / LW, TL);
+    F a0, p0;
+#pragma unroll
+    for (int j = 0; j < LW; ++j) {
+      a0.w[j] = __shfl_sync(tmask, a.w[j], 0, TL);
+      p0.w[j] = FpSpec::p(j);
+    }
+    // t: this lane's words; s: lane 0's words, kept by every lane so that
+    // each computes m itself. e, es: the carries pending out of their top
+    // words (into the next lane's word 0; the last lane's into word 12).
+    uint32_t t[LW], s[LW];
+#pragma unroll
+    for (int j = 0; j < LW; ++j) t[j] = s[j] = 0;
+    uint64_t e = 0, es = 0;
+#pragma unroll
+    for (int i = 0; i < NL; ++i) {
+      row(t, a, bl[i], e);
+      row(s, a0, bl[i], es);
+      const uint32_t m = s[0] * FpSpec::NP0;
+      row(t, p, m, e);
+      row(s, p0, m, es);
+      // word 0 is now 0; every lane takes its next lane's word 0, the copy
+      // of lane 0 takes lane 1's
+      uint32_t up = __shfl_down_sync(tmask, t[0], 1, TL);
+      if (k == TL - 1) up = 0;
+      const uint32_t up_s = __shfl_sync(tmask, t[0], 1, TL);
+      shift(t, up, e);  // e < 4 after the shift
+      shift(s, up_s, es);
+    }
+    // the pending e (< 4; the last lane's is 0 since the result is < 2p <
+    // 2^384) go up one lane; then one add with the carries left between lanes
+    // and the conditional subtract of p
+    F x, y{};
+    y.w[0] = __shfl_up_sync(tmask, (uint32_t)e, 1, TL);
+    if (k == 0) y.w[0] = 0;
+#pragma unroll
+    for (int j = 0; j < LW; ++j) x.w[j] = t[j];
+    return add_reduce(x, y);
+  }
+
+  // Team q's value of x, on every lane of the group.
+  __device__ F from_team(const F& x, int q) const {
+    F r;
+#pragma unroll
+    for (int j = 0; j < LW; ++j) r.w[j] = __shfl_sync(gmask, x.w[j], q * TL + k, GL);
+    return r;
+  }
+
+  // out[q] = a[q] * b[q] for the K independent products of one level: team t
+  // takes product r + t of round r (teams past the last product repeat it).
+  template <int K>
+  __device__ void level(const F (&a)[K], const F (&b)[K], F* out) const {
+#pragma unroll
+    for (int r = 0; r < K; r += NT) {
+      F x = a[r], y = b[r];
+#pragma unroll
+      for (int q = r + 1; q < K && q < r + NT; ++q) {
+        x = pick(team >= q - r, a[q], x);
+        y = pick(team >= q - r, b[q], y);
+      }
+      const F z = mul(x, y);
+#pragma unroll
+      for (int q = r; q < K && q < r + NT; ++q) out[q] = from_team(z, q - r);
+    }
+  }
+
+  // dbl-2009-l (g1.py:double :90-103); p is not the identity here.
+  __device__ void dbl_point(Pt& P) const {
+    F o[3];
+    {
+      const F a[3] = {P.x, P.y, P.y}, b[3] = {P.x, P.y, P.z};
+      level<3>(a, b, o);
+    }
+    const F A = o[0], B = o[1], yz = o[2];
+    const F E = add(dbl(A), A);
+    const F xb = add(P.x, B);
+    {
+      const F a[3] = {B, xb, E};
+      level<3>(a, a, o);
+    }
+    const F C = o[0], F_ = o[2];
+    const F D = dbl(sub(sub(o[1], A), C));
+    const F x3 = sub(sub(F_, D), D);
+    const F c8 = dbl(dbl(dbl(C)));
+    F y3[1];
+    {
+      const F a[1] = {sub(D, x3)}, b[1] = {E};
+      level<1>(a, b, y3);
+    }
+    P.z = dbl(yz);
+    P.x = x3;
+    P.y = sub(y3[0], c8);
+  }
+
+  // madd-2007-bl (g1.py:add_mixed :135-158) with its edge cases.
+  __device__ void add_mixed(Pt& P, const F& qx, const F& qy) const {
+    // every team holds the same point: a team's answer is the group's
+    if (!team_or(nonzero(P.z))) {  // identity + q = (qx, qy, mont(1))
+      P.x = qx;
+      P.y = qy;
+      P.z = one;
+      return;
+    }
+    F o[3];
+    {
+      const F a[2] = {P.z, qy}, b[2] = {P.z, P.z};
+      level<2>(a, b, o);
+    }
+    const F z1z1 = o[0], qyz = o[1];
+    {
+      const F a[2] = {qx, qyz}, b[2] = {z1z1, z1z1};
+      level<2>(a, b, o);
+    }
+    const F u2 = o[0], s2 = o[1];
+    if (team_or(!same(P.x, u2) || !same(P.y, s2)) == 0) {
+      dbl_point(P);
+      return;
+    }
+    const F h = sub(u2, P.x);
+    const F r = dbl(sub(s2, P.y));
+    const F zh = add(P.z, h);
+    {
+      const F a[3] = {h, r, zh};
+      level<3>(a, a, o);
+    }
+    const F hh = o[0], rr = o[1], zh2 = o[2];
+    const F i = dbl(dbl(hh));
+    {
+      const F a[2] = {h, P.x}, b[2] = {i, i};
+      level<2>(a, b, o);
+    }
+    const F j = o[0], v = o[1];
+    const F x3 = sub(sub(rr, j), dbl(v));
+    {
+      const F a[2] = {sub(v, x3), P.y}, b[2] = {r, j};
+      level<2>(a, b, o);
+    }
+    P.y = sub(o[0], dbl(o[1]));
+    P.z = sub(sub(zh2, z1z1), hh);
+    P.x = x3;
+  }
 };
 
-__device__ __forceinline__ void fmul(const uint32_t* a, const uint32_t* b, uint32_t* r) {
-  mont_mul<FpSpec>(a, b, r);
-}
-__device__ __forceinline__ void fadd(const uint32_t* a, const uint32_t* b, uint32_t* r) {
-  mod_add<FpSpec>(a, b, r);
-}
-__device__ __forceinline__ void fsub(const uint32_t* a, const uint32_t* b, uint32_t* r) {
-  mod_sub<FpSpec>(a, b, r);
-}
-__device__ __forceinline__ void fdbl(const uint32_t* a, uint32_t* r) { mod_add<FpSpec>(a, a, r); }
-
-// dbl-2009-l (g1.py:double :90-103); p is not the identity here.
-__device__ void g1_double(Pt& p) {
-  uint32_t a[NL], b[NL], c[NL], d[NL], e[NL], f[NL], t[NL], x3[NL], y3[NL], z3[NL];
-  fmul(p.x, p.x, a);
-  fmul(p.y, p.y, b);
-  fmul(b, b, c);
-  fadd(p.x, b, t);
-  fmul(t, t, d);
-  fsub(d, a, d);
-  fsub(d, c, d);
-  fdbl(d, d);
-  fdbl(a, e);
-  fadd(e, a, e);
-  fmul(e, e, f);
-  fmul(p.y, p.z, z3);
-  fdbl(z3, z3);
-  fsub(f, d, x3);
-  fsub(x3, d, x3);
-  fdbl(c, c);
-  fdbl(c, c);
-  fdbl(c, c);  // c8
-  fsub(d, x3, t);
-  fmul(t, e, y3);
-  fsub(y3, c, y3);
-#pragma unroll
-  for (int i = 0; i < NL; ++i) {
-    p.x[i] = x3[i];
-    p.y[i] = y3[i];
-    p.z[i] = z3[i];
-  }
-}
-
-// madd-2007-bl (g1.py:add_mixed :135-158) with its edge cases.
-__device__ void g1_add_mixed(Pt& p, const uint32_t* qx, const uint32_t* qy) {
-  if (is_zero<NL>(p.z)) {  // identity + q = (q.x, q.y, mont(1))
-    constexpr uint32_t ONE[NL] = {0x0002fffdu, 0x76090000u, 0xc40c0002u, 0xebf4000bu,
-                                  0x53c758bau, 0x5f489857u, 0x70525745u, 0x77ce5853u,
-                                  0xa256ec6du, 0x5c071a97u, 0xfa80e493u, 0x15f65ec3u};
-#pragma unroll
-    for (int i = 0; i < NL; ++i) {
-      p.x[i] = qx[i];
-      p.y[i] = qy[i];
-      p.z[i] = ONE[i];
-    }
-    return;
-  }
-  uint32_t z1z1[NL], u2[NL], s2[NL], t[NL];
-  fmul(p.z, p.z, z1z1);
-  fmul(qx, z1z1, u2);
-  fmul(qy, p.z, t);
-  fmul(t, z1z1, s2);
-  if (equal<NL>(p.x, u2) && equal<NL>(p.y, s2)) {
-    g1_double(p);
-    return;
-  }
-  uint32_t h[NL], hh[NL], ii[NL], j[NL], r[NL], v[NL], x3[NL], y3[NL], z3[NL];
-  fsub(u2, p.x, h);
-  fmul(h, h, hh);
-  fdbl(hh, ii);
-  fdbl(ii, ii);
-  fmul(h, ii, j);
-  fsub(s2, p.y, r);
-  fdbl(r, r);
-  fmul(p.x, ii, v);
-  fmul(r, r, x3);
-  fsub(x3, j, x3);
-  fdbl(v, t);
-  fsub(x3, t, x3);
-  fsub(v, x3, t);
-  fmul(t, r, y3);
-  fmul(p.y, j, t);
-  fdbl(t, t);
-  fsub(y3, t, y3);
-  fadd(p.z, h, t);
-  fmul(t, t, z3);
-  fsub(z3, z1z1, z3);
-  fsub(z3, hh, z3);
-#pragma unroll
-  for (int i = 0; i < NL; ++i) {
-    p.x[i] = x3[i];
-    p.y[i] = y3[i];
-    p.z[i] = z3[i];
-  }
-}
-
 // scalars: (n, 8) raw 256-bit values; tx, ty: (64, 16, 12); out: (n, 12) each.
-__global__ void g1_comb_kernel(const uint32_t* __restrict__ scalars,
-                               const uint32_t* __restrict__ tx, const uint32_t* __restrict__ ty,
-                               uint32_t* __restrict__ ox, uint32_t* __restrict__ oy,
-                               uint32_t* __restrict__ oz, int64_t n) {
-  const int64_t e = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (e >= n) return;
-  uint32_t s[8];
+template <int TL, int NT>
+__global__ void __launch_bounds__(THREADS)
+    g1_comb_kernel(const uint32_t* __restrict__ scalars, const uint32_t* __restrict__ tx,
+                   const uint32_t* __restrict__ ty, uint32_t* __restrict__ ox,
+                   uint32_t* __restrict__ oy, uint32_t* __restrict__ oz, int64_t n) {
+  using T = Team<TL, NT>;
+  using F = typename T::F;
+  constexpr int LW = T::LW, GL = T::GL;
+  const int64_t e = ((int64_t)blockIdx.x * THREADS + threadIdx.x) / GL;
+  if (e >= n) return;  // the whole group
+  const T tm(threadIdx.x & 31);
+  const uint32_t sw = tm.g < 8 ? __ldg(scalars + e * 8 + tm.g) : 0u;
+  typename T::Pt P;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) s[i] = scalars[e * 8 + i];
-  Pt p;
-#pragma unroll
-  for (int i = 0; i < NL; ++i) p.x[i] = p.y[i] = p.z[i] = 0;
+  for (int j = 0; j < LW; ++j) P.x.w[j] = P.y.w[j] = P.z.w[j] = 0;
+#pragma unroll 1
   for (int w = 0; w < WINDOWS; ++w) {
-    const uint32_t d = (s[w >> 3] >> (4 * (w & 7))) & 15u;
-    if (d == 0) continue;  // k = 0 slots are the identity: keep p
-    const int64_t off = ((int64_t)w * ENTRIES + d) * NL;
-    uint32_t qx[NL], qy[NL];
+    const uint32_t d = (__shfl_sync(tm.gmask, sw, w >> 3, GL) >> (4 * (w & 7))) & 15u;
+    if (d == 0) continue;  // k = 0 slots are the identity: keep the point
+    const int64_t off = ((int64_t)w * ENTRIES + d) * NL + tm.k * LW;
+    F qx, qy;
 #pragma unroll
-    for (int i = 0; i < NL; ++i) {
-      qx[i] = __ldg(tx + off + i);
-      qy[i] = __ldg(ty + off + i);
+    for (int j = 0; j < LW; ++j) {
+      qx.w[j] = __ldg(tx + off + j);
+      qy.w[j] = __ldg(ty + off + j);
     }
-    g1_add_mixed(p, qx, qy);
+    tm.add_mixed(P, qx, qy);
   }
+  if (tm.team == 0) {
+    const int64_t o = e * NL + tm.k * LW;
 #pragma unroll
-  for (int i = 0; i < NL; ++i) {
-    ox[e * NL + i] = p.x[i];
-    oy[e * NL + i] = p.y[i];
-    oz[e * NL + i] = p.z[i];
+    for (int j = 0; j < LW; ++j) {
+      ox[o + j] = P.x.w[j];
+      oy[o + j] = P.y.w[j];
+      oz[o + j] = P.z.w[j];
+    }
   }
+}
+
+template <int TL, int NT>
+cudaError_t launch(const void* scalars, const void* tx, const void* ty, void* ox, void* oy,
+                   void* oz, long long n, cudaStream_t stream) {
+  constexpr int PER_BLOCK = THREADS / (TL * NT);
+  const long long blocks = (n + PER_BLOCK - 1) / PER_BLOCK;
+  g1_comb_kernel<TL, NT><<<(unsigned)blocks, THREADS, 0, stream>>>(
+      (const uint32_t*)scalars, (const uint32_t*)tx, (const uint32_t*)ty, (uint32_t*)ox,
+      (uint32_t*)oy, (uint32_t*)oz, n);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
+// n >= 1 scalars; split picks lanes per team x teams: 0 = 4 x 4, 1 = 2 x 4, 2 = 4 x 2.
 extern "C" int zk_g1_comb(const void* scalars, const void* tx, const void* ty, void* ox, void* oy,
-                          void* oz, long long n, void* stream) {
-  const unsigned blocks = (unsigned)((n + THREADS - 1) / THREADS);
-  g1_comb_kernel<<<blocks < 1 ? 1 : blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)scalars, (const uint32_t*)tx, (const uint32_t*)ty, (uint32_t*)ox,
-      (uint32_t*)oy, (uint32_t*)oz, n);
-  return (int)cudaGetLastError();
+                          void* oz, long long n, void* stream, int device, int split) {
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  int prev = device;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (split == 1)
+    err = launch<2, 4>(scalars, tx, ty, ox, oy, oz, n, s);
+  else if (split == 2)
+    err = launch<4, 2>(scalars, tx, ty, ox, oy, oz, n, s);
+  else
+    err = launch<TEAM_LANES, TEAMS>(scalars, tx, ty, ox, oy, oz, n, s);
+  if (prev != device) cudaSetDevice(prev);
+  return (int)err;
 }
