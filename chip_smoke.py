@@ -10,7 +10,9 @@ Phases (each prints its own lines; any failure exits nonzero):
      with its time at a main-path shape beside its bound; K3 also at the
      shapes where its design can break (one warp, the last-block reduction,
      odd tails, every operand p - 1, dot_many of strided halves) and timed at
-     each main-path regime (flat, batched rows, dot_many of a round)
+     each main-path regime (flat, batched rows, dot_many of a round); K4 on
+     the edge scalars (0, 1, r - 1, 2^256 - 1, r, 2^256 - r) and at 1 to 2049
+     scalars, and timed at 35 (an opening) and 2048 (a commitment)
   3. a small model proved on the card and on the CPU (plain versions): every
      proof array identical, unchained SeededRng and chained Fiat-Shamir
   4. zkdl256 (8 layers at full width, batch 256) through the port's bench
@@ -277,12 +279,6 @@ def phase_kernels(records: dict) -> None:
         log(f"[kernels] g1_comb at {label}: {ms:.4f} ms (bound {bms:.6f} ms by {by}: {nz} nonzero windows x "
             f"{FP_MULS_PER_WINDOW} Fp products; the chain of one scalar is up to 64 windows x "
             f"{FP_LEVELS_PER_WINDOW} = {64 * FP_LEVELS_PER_WINDOW} dependent Fp-product levels)")
-    for split in (1, 2):  # probe: other lane splits of the same kernel
-        for scal in (sc35, sc2048):
-            same(f"g1_comb split {split} n={scal.shape[0]}", torch.cat(list(g1.generator_pow(scal, _split=split))),
-                 torch.cat(list(g1.generator_pow_plain(scal))))
-            log(f"[probe] g1_comb split {split} at {scal.shape[0]} scalars: "
-                f"{cuda_ms(lambda: g1.generator_pow(scal, _split=split), 10):.4f} ms")
 
     # K3 in each regime of the main path. Bounds count each distinct input
     # once: a round's dot_many reads four halves, each in two of its pairs.

@@ -131,8 +131,9 @@ def test_integer_comb_matches_generator_pow_plain_and_host_oracle():
 
 # ---------------------------------------------------------------------------
 # word-level model of the team arithmetic of csrc/g1_comb.cu: the same lane
-# layout (lane k of a team holds limbs LW k .. LW k + LW - 1 of every Fp
-# value) and the same step order as Team::mul, Team::add_reduce, Team::sub
+# layout (lane k < TEAM_LANES of a team holds limbs LW k .. LW k + LW - 1 of
+# every Fp value; the team's other lanes idle) and the same step order as
+# Team::mul, Team::add, Team::sub
 # ---------------------------------------------------------------------------
 
 TL = _const("TEAM_LANES")
@@ -177,17 +178,15 @@ def _all_ones(x):
 
 
 def _resolve(flags, drop=None):
-    """Team::resolve: flags[k] = (o10, o11, o200, o201, o210, o211) of lane k,
-    gathered as one OR of flag q of lane k at bit q TL + k."""
-    all_ = 0
-    for k, f in enumerate(flags):
-        all_ |= sum(int(b) << (q * TL) for q, b in enumerate(f)) << k
-    G1 = all_ & BITS
-    P1 = (all_ >> TL) & ~G1 & BITS
+    """Team::resolve: flags[k] = (o10, o11, o200, o201, o210, o211) of lane k;
+    a ballot per flag gives the team's lanes where it holds."""
+    o10, o11, o200, o201, o210, o211 = (sum(int(f[q]) << k for k, f in enumerate(flags)) for q in range(6))
+    G1 = o10
+    P1 = o11 & ~G1
     S1 = (G1 << 1) + P1
     C1 = (S1 ^ P1) & BITS
-    G2 = (((all_ >> 2 * TL) & ~C1) | ((all_ >> 4 * TL) & C1)) & BITS
-    P2 = (((all_ >> 3 * TL) & ~C1) | ((all_ >> 5 * TL) & C1)) & ~G2 & BITS
+    G2 = (o200 & ~C1) | (o210 & C1)
+    P2 = ((o201 & ~C1) | (o211 & C1)) & ~G2
     S2 = (G2 << 1) + P2
     C2 = S2 ^ P2
     in1 = [0 if drop == "stage 1" else (C1 >> k) & 1 for k in range(TL)]
@@ -195,8 +194,8 @@ def _resolve(flags, drop=None):
     return in1, in2, S1 >> TL, S2 >> TL
 
 
-def _add_reduce(x, y, drop=None):
-    """Team::add_reduce: (x + y) mod p for x + y < 2p."""
+def _add(x, y, drop=None):
+    """Team::add: (x + y) mod p for x + y < 2p."""
     flags, s0s, s1s = [], [], []
     for k in range(TL):
         s0, o10 = _add_words(x[k], y[k], 0)
@@ -271,7 +270,7 @@ def _mul(a, b, drop=None):
         assert max(e) < 4
     assert e[TL - 1] == 0
     y = [[e[k - 1] if k else 0] + [0] * (LW - 1) for k in range(TL)]
-    return _add_reduce(t, y, drop)
+    return _add(t, y, drop)
 
 
 RINV = pow(1 << 384, -1, P)
@@ -305,7 +304,7 @@ def test_team_arithmetic_matches_integers(kind):
     for x, y in _operands(kind):
         X, Y = _split(x), _split(y)
         assert _join(_mul(X, Y)) == x * y * RINV % P, (x, y)
-        assert _join(_add_reduce(X, Y)) == (x + y) % P, (x, y)
+        assert _join(_add(X, Y)) == (x + y) % P, (x, y)
         assert _join(_sub(X, Y)) == (x - y) % P, (x, y)
 
 
@@ -319,7 +318,7 @@ def test_team_model_fails_when_a_carry_is_dropped(drop):
     for x, y in _operands("targeted", 96):
         X, Y = _split(x), _split(y)
         bad["mul"] += _join(_mul(X, Y, drop)) != x * y * RINV % P
-        bad["add"] += _join(_add_reduce(X, Y, drop)) != (x + y) % P
+        bad["add"] += _join(_add(X, Y, drop)) != (x + y) % P
         bad["sub"] += _join(_sub(X, Y, drop)) != (x - y) % P
     assert bad["mul"] > 0, bad
     if drop != "pending":
@@ -327,10 +326,8 @@ def test_team_model_fails_when_a_carry_is_dropped(drop):
 
 
 def test_kernel_source_matches_the_model():
-    """The model's team shape and p' are the kernel's; a group divides a warp
-    and holds the scalar's 8 words; the six flags of a lane fit one REDUX."""
-    teams, threads = _const("TEAMS"), _const("THREADS")
-    group = TL * teams
-    assert 12 % TL == 0 and 32 % group == 0 and group >= 8 and 6 * TL <= 32
-    assert threads % 32 == 0
+    """The model's team shape and p' are the kernel's; a scalar's teams fill
+    one warp, so its decisions are warp-uniform and its ballots whole-warp."""
+    width, teams, threads = _const("TEAM_WIDTH"), _const("TEAMS"), _const("THREADS")
+    assert 12 % TL == 0 and TL <= width and width * teams == 32 and threads % 32 == 0
     assert re.search(rf"NP0 = 0x{NP0:08x}u", (build.CSRC / "field.cuh").read_text())

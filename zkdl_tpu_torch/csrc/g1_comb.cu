@@ -23,35 +23,34 @@
 // that depend on each other: {z1z1 = z^2, qyz = qy z}, {u2, s2}, {hh = h^2,
 // rr = r^2, zh2 = (z + h)^2}, {j = h i, v = x i}, {(v - x3) r, y j}; 64
 // windows x 5 = 320 product levels a scalar, plus the adds and subs between
-// them. A one-thread 12-limb product is a long carry chain.
+// them. In one thread a 12-limb product is a long serial carry chain: the
+// one-thread kernel this replaces took ~43 us a window.
 //
-// The design: a group of GROUP_LANES lanes serves one scalar, split into
-// TEAMS teams of TEAM_LANES lanes. Every team holds the whole point, each
-// lane LW = 12 / TEAM_LANES consecutive 32-bit limbs of every Fp value. The
-// products of one level run side by side, one per team (a level of more
-// products than teams takes more rounds), and each result reaches every team
-// by a shuffle (the teams lay out limbs alike). A Montgomery product is
-// operand scanning over b's 12 limbs spread over a team: b_i is shuffled from
-// its lane; each lane adds its LW limbs of a b_i and then m p (m = t_0 p' mod
-// 2^32, computed from the team's lane 0 and shuffled) with carry chains only
-// LW words long; the accumulator shifts one word down the team with one
-// shuffle. A lane's carry out of its top word stays pending (e) and is added
+// The design: one warp serves one scalar, as TEAMS teams of TEAM_WIDTH lanes;
+// the first TEAM_LANES lanes of a team hold LW = 12 / TEAM_LANES limbs each
+// of every Fp value (one), the rest idle. Every team holds the whole point.
+// The products of one level run side by side, one per team (a level of three
+// takes two rounds), and each result reaches the other team by a shuffle
+// (both lay out limbs alike). A Montgomery product is operand scanning over
+// b's 12 limbs spread over a team: each lane adds its limbs of a b_i and of
+// m p into its words with carry chains only LW words long, and the
+// accumulator shifts one word down the team with a shuffle. Every lane also
+// keeps a copy of lane 0's words (fed lane 1's word at each shift), so each
+// computes m = t_0 p' mod 2^32 itself and no shuffle of m stands in the
+// chain. A lane's carry out of its top word stays pending (e) and is added
 // where that word lands after the shift, so lane 0's words never have a
-// carry pending into them and t_0 is exact for the next m. Bounds, with
-// words < 2^32: each wide multiply-add a * b + t + c <= 2^64 - 1; during a
-// step e < 4 + 2 * 2^32; after the shift e < 4. After the 12 steps the
-// pending e (< 4) go up one lane, and the carries this leaves between lanes
-// are resolved at once by a lookahead on two ballots (generate: the lane's
-// add carried out; propagate: its words are all ones; carry-in = ((G << 1) +
-// P) ^ P). The product is then < 2p and the conditional subtract of p
-// decides with the same lookahead on borrows. add, sub and double use the
-// same lookahead. The point's branches (identity, equal points) and a zero
-// digit are decided once per group (every lane holds the same values), so a
-// group never diverges; two groups of a warp may, and every shuffle and
-// ballot names only its team's or group's lanes.
+// carry pending into them and t_0 is exact. Bounds, with words < 2^32: each
+// wide multiply-add x y + t + c <= 2^64 - 1; during a step e < 4 + 2^33;
+// after the shift e < 4. After the 12 steps the pending e go up one lane,
+// and one two-stage operation resolves the carries this leaves between lanes
+// and the conditional subtract of p (see Team::resolve); add, sub and double
+// are the same two-stage operation. The carry flags are gathered by ballots
+// of the whole warp: all of a warp's decisions (zero digit, identity, equal
+// points) are its scalar's, so the warp never diverges: ptxas guards every
+// ballot and shuffle with a divergence test whose slow path is a loop, and
+// a ballot over part of a warp takes that path even in a converged warp.
 //
-// Grid: 128-thread blocks, 128 / GROUP_LANES scalars a block, one group per
-// scalar; a group past n exits whole.
+// Grid: 128-thread blocks, 4 scalars a block; a warp past n exits.
 //
 // C interface (loaded with ctypes): zk_g1_comb launches on the given stream
 // and device and returns cudaGetLastError().
@@ -67,8 +66,10 @@ constexpr int NL = FpSpec::N;
 constexpr int WINDOWS = 64;
 constexpr int ENTRIES = 16;
 constexpr int THREADS = 128;
-constexpr int TEAM_LANES = 4;  // lanes a team
-constexpr int TEAMS = 4;       // teams a scalar
+constexpr int TEAM_LANES = 12;  // lanes of a team that hold limbs
+constexpr int TEAM_WIDTH = 16;  // lanes a team spans (the others idle)
+constexpr int TEAMS = 2;        // teams a scalar
+constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ uint32_t one_mont(int i) {  // mont(1) = 2^384 mod p
   constexpr uint32_t ONE[NL] = {0x0002fffdu, 0x76090000u, 0xc40c0002u, 0xebf4000bu,
@@ -77,12 +78,12 @@ __device__ __forceinline__ uint32_t one_mont(int i) {  // mont(1) = 2^384 mod p
   return ONE[i];
 }
 
-template <int TL, int NT>
 struct Team {
-  static constexpr int LW = NL / TL;  // limbs a lane
-  static constexpr int GL = TL * NT;  // lanes a scalar
-  static_assert(NL % TL == 0 && 32 % GL == 0 && GL >= 8,
-                "a team splits 12 limbs; a group divides a warp and holds the scalar's 8 words");
+  static constexpr int TL = TEAM_LANES, TW = TEAM_WIDTH, NT = TEAMS;
+  static constexpr int LW = NL / TL;   // limbs a lane
+  static constexpr int GL = TW * NT;  // lanes a scalar
+  static_assert(NL % TL == 0 && TL <= TW && (TW & (TW - 1)) == 0 && GL == 32,
+                "a team splits 12 limbs; a scalar takes one warp, so every decision is warp-uniform");
   static constexpr uint32_t TEAM_BITS = (1u << TL) - 1;
 
   struct F {
@@ -92,20 +93,19 @@ struct Team {
     F x, y, z;
   };
 
-  int k;     // lane within the team
-  int team;  // team within the group
-  int g;     // lane within the group
+  int k;     // lane within the team (k >= TL: idle, holds don't-care words)
+  int team;  // team within the warp
   int tbase;
-  unsigned tmask, gmask;
+  unsigned tmask;
   F p, one;  // this lane's limbs of p and of mont(1)
 
   __device__ explicit Team(int lane) {
-    g = lane % GL;
-    k = g % TL;
-    team = g / TL;
+    k = lane % TW;
+    team = lane / TW;
     tbase = lane - k;
-    tmask = TEAM_BITS << tbase;
-    gmask = GL == 32 ? 0xffffffffu : ((1u << GL) - 1) << (lane - g);
+    tmask = TW == 32 ? FULL : ((1u << TW) - 1) << tbase;
+#pragma unroll
+    for (int j = 0; j < LW; ++j) p.w[j] = one.w[j] = 0;
 #pragma unroll
     for (int i = 0; i < NL; ++i) {
       if (i / LW == k) {
@@ -166,21 +166,15 @@ struct Team {
   // stage 1 adds (subtracts) two values, stage 2 subtracts (adds) p. Each
   // lane computes the carry out of its words for every carry-in it could
   // get: stage 1 for in = 0 and 1, stage 2 for each stage-1 carry-in and
-  // each stage-2 carry-in. One REDUX gathers these six flags of every lane,
+  // each stage-2 carry-in. Six ballots gather these flags of every lane,
   // and every lane resolves both stages' carries from them by lookahead:
   // with G = the lanes that carry out on in = 0 and P = the lanes that carry
   // out only on in = 1, the carry-ins are ((G << 1) + P) ^ P and bit TL of
   // (G << 1) + P is the carry out of the team.
 
-  // OR over the team of each lane's flags shifted to its lane's bit: one
-  // shuffle from each lane (a ballot or REDUX over part of a warp takes a
-  // slow path on Hopper, some 550 and 850 cycles against 32 for a shuffle).
-  __device__ uint32_t team_or(uint32_t mine) const {
-    uint32_t all = 0;
-#pragma unroll
-    for (int j = 0; j < TL; ++j) all |= __shfl_sync(tmask, mine, j, TL) << j;
-    return all;
-  }
+  // The team's lanes where f holds, as bits 0 .. TL - 1 (the warp is
+  // converged: a ballot of the whole warp is one VOTE).
+  __device__ uint32_t flags(bool f) const { return (__ballot_sync(FULL, f) >> tbase) & TEAM_BITS; }
 
   struct Carries {
     uint32_t in1, in2;    // this lane's carry-in of stage 1, stage 2
@@ -190,20 +184,17 @@ struct Team {
   // o1[c]: stage-1 carry out for carry-in c; o2[c][b]: stage-2 carry out for
   // stage-1 carry-in c and stage-2 carry-in b.
   __device__ Carries resolve(bool o10, bool o11, bool o200, bool o201, bool o210, bool o211) const {
-    const uint32_t mine = (uint32_t)o10 | (uint32_t)o11 << TL | (uint32_t)o200 << 2 * TL |
-                          (uint32_t)o201 << 3 * TL | (uint32_t)o210 << 4 * TL | (uint32_t)o211 << 5 * TL;
-    const uint32_t all = team_or(mine);
-    const uint32_t G1 = all & TEAM_BITS, P1 = (all >> TL) & ~G1 & TEAM_BITS;
+    const uint32_t G1 = flags(o10), P1 = flags(o11) & ~G1;
     const uint32_t S1 = (G1 << 1) + P1, C1 = (S1 ^ P1) & TEAM_BITS;
-    const uint32_t G2 = (((all >> 2 * TL) & ~C1) | ((all >> 4 * TL) & C1)) & TEAM_BITS;
-    const uint32_t P2 = (((all >> 3 * TL) & ~C1) | ((all >> 5 * TL) & C1)) & ~G2 & TEAM_BITS;
+    const uint32_t G2 = (flags(o200) & ~C1) | (flags(o210) & C1);
+    const uint32_t P2 = ((flags(o201) & ~C1) | (flags(o211) & C1)) & ~G2;
     const uint32_t S2 = (G2 << 1) + P2;
     return {(C1 >> k) & 1u, ((S2 ^ P2) >> k) & 1u, S1 >> TL, S2 >> TL};
   }
 
   // (x + y) mod p for x + y < 2p: stage 1 x + y, stage 2 minus p, kept when
   // it does not borrow out of the team.
-  __device__ F add_reduce(const F& x, const F& y) const {
+  __device__ F add(const F& x, const F& y) const {
     F s0, s1, d;
     const bool o10 = add_words(x, y, 0, s0);
     const bool o11 = o10 || all_ones(s0);
@@ -215,8 +206,7 @@ struct Team {
     sub_words(s, p, c.in2, d);
     return c.top2 ? s : d;
   }
-  __device__ F add(const F& x, const F& y) const { return add_reduce(x, y); }
-  __device__ F dbl(const F& x) const { return add_reduce(x, x); }
+  __device__ F dbl(const F& x) const { return add(x, x); }
 
   // (x - y) mod p: stage 1 x - y, stage 2 plus p, taken when stage 1 borrows
   // out of the team (the carry out of stage 2 is dropped).
@@ -258,13 +248,14 @@ struct Team {
 
   // a * b * 2^-384 mod p over the team (see the note at the top).
   __device__ F mul(const F& a, const F& b) const {
-    uint32_t bl[NL];  // b's limbs and lane 0's limbs of a and p, on every lane
+    // b's limbs and lane 0's limbs of a and p, on every lane
+    uint32_t bl[NL];
 #pragma unroll
-    for (int i = 0; i < NL; ++i) bl[i] = __shfl_sync(tmask, b.w[i % LW], i / LW, TL);
+    for (int i = 0; i < NL; ++i) bl[i] = __shfl_sync(tmask, b.w[i % LW], i / LW, TW);
     F a0, p0;
 #pragma unroll
     for (int j = 0; j < LW; ++j) {
-      a0.w[j] = __shfl_sync(tmask, a.w[j], 0, TL);
+      a0.w[j] = __shfl_sync(tmask, a.w[j], 0, TW);
       p0.w[j] = FpSpec::p(j);
     }
     // t: this lane's words; s: lane 0's words, kept by every lane so that
@@ -283,9 +274,9 @@ struct Team {
       row(s, p0, m, es);
       // word 0 is now 0; every lane takes its next lane's word 0, the copy
       // of lane 0 takes lane 1's
-      uint32_t up = __shfl_down_sync(tmask, t[0], 1, TL);
-      if (k == TL - 1) up = 0;
-      const uint32_t up_s = __shfl_sync(tmask, t[0], 1, TL);
+      uint32_t up = __shfl_down_sync(tmask, t[0], 1, TW);
+      if (k >= TL - 1) up = 0;
+      const uint32_t up_s = __shfl_sync(tmask, t[0], 1, TW);
       shift(t, up, e);  // e < 4 after the shift
       shift(s, up_s, es);
     }
@@ -293,18 +284,18 @@ struct Team {
     // 2^384) go up one lane; then one add with the carries left between lanes
     // and the conditional subtract of p
     F x, y{};
-    y.w[0] = __shfl_up_sync(tmask, (uint32_t)e, 1, TL);
+    y.w[0] = __shfl_up_sync(tmask, (uint32_t)e, 1, TW);
     if (k == 0) y.w[0] = 0;
 #pragma unroll
     for (int j = 0; j < LW; ++j) x.w[j] = t[j];
-    return add_reduce(x, y);
+    return add(x, y);
   }
 
-  // Team q's value of x, on every lane of the group.
+  // Team q's value of x, on every lane of the warp.
   __device__ F from_team(const F& x, int q) const {
     F r;
 #pragma unroll
-    for (int j = 0; j < LW; ++j) r.w[j] = __shfl_sync(gmask, x.w[j], q * TL + k, GL);
+    for (int j = 0; j < LW; ++j) r.w[j] = __shfl_sync(FULL, x.w[j], q * TW + k);
     return r;
   }
 
@@ -354,10 +345,10 @@ struct Team {
     P.y = sub(y3[0], c8);
   }
 
-  // madd-2007-bl (g1.py:add_mixed :135-158) with its edge cases.
+  // madd-2007-bl (g1.py:add_mixed :135-158) with its edge cases; every
+  // team holds the same point, so a team's flags decide for the warp.
   __device__ void add_mixed(Pt& P, const F& qx, const F& qy) const {
-    // every team holds the same point: a team's answer is the group's
-    if (!team_or(nonzero(P.z))) {  // identity + q = (qx, qy, mont(1))
+    if (flags(nonzero(P.z)) == 0) {  // identity + q = (qx, qy, mont(1))
       P.x = qx;
       P.y = qy;
       P.z = one;
@@ -374,7 +365,7 @@ struct Team {
       level<2>(a, b, o);
     }
     const F u2 = o[0], s2 = o[1];
-    if (team_or(!same(P.x, u2) || !same(P.y, s2)) == 0) {
+    if (flags(!same(P.x, u2) || !same(P.y, s2)) == 0) {  // equal points: never on the prover's path
       dbl_point(P);
       return;
     }
@@ -404,35 +395,47 @@ struct Team {
 };
 
 // scalars: (n, 8) raw 256-bit values; tx, ty: (64, 16, 12); out: (n, 12) each.
-template <int TL, int NT>
+// One warp a scalar.
 __global__ void __launch_bounds__(THREADS)
     g1_comb_kernel(const uint32_t* __restrict__ scalars, const uint32_t* __restrict__ tx,
                    const uint32_t* __restrict__ ty, uint32_t* __restrict__ ox,
                    uint32_t* __restrict__ oy, uint32_t* __restrict__ oz, int64_t n) {
-  using T = Team<TL, NT>;
-  using F = typename T::F;
-  constexpr int LW = T::LW, GL = T::GL;
-  const int64_t e = ((int64_t)blockIdx.x * THREADS + threadIdx.x) / GL;
-  if (e >= n) return;  // the whole group
-  const T tm(threadIdx.x & 31);
-  const uint32_t sw = tm.g < 8 ? __ldg(scalars + e * 8 + tm.g) : 0u;
-  typename T::Pt P;
+  using F = Team::F;
+  constexpr int LW = Team::LW;
+  const int64_t e = ((int64_t)blockIdx.x * THREADS + threadIdx.x) / 32;
+  if (e >= n) return;  // the whole warp
+  const int lane = threadIdx.x & 31;
+  const Team tm(lane);
+  const bool holds = tm.k < Team::TL;
+  const uint32_t sw = lane < 8 ? __ldg(scalars + e * 8 + lane) : 0u;
+  auto digit = [&](int w) { return (__shfl_sync(FULL, sw, w >> 3) >> (4 * (w & 7))) & 15u; };
+  Team::Pt P;
 #pragma unroll
   for (int j = 0; j < LW; ++j) P.x.w[j] = P.y.w[j] = P.z.w[j] = 0;
-#pragma unroll 1
-  for (int w = 0; w < WINDOWS; ++w) {
-    const uint32_t d = (__shfl_sync(tm.gmask, sw, w >> 3, GL) >> (4 * (w & 7))) & 15u;
-    if (d == 0) continue;  // k = 0 slots are the identity: keep the point
+  // this lane's limbs of the table entries, loaded a window ahead
+  F nx{}, ny{};
+  uint32_t nd = digit(0);
+  auto load = [&](int w, uint32_t d) {
+    if (!holds) return;
     const int64_t off = ((int64_t)w * ENTRIES + d) * NL + tm.k * LW;
-    F qx, qy;
 #pragma unroll
     for (int j = 0; j < LW; ++j) {
-      qx.w[j] = __ldg(tx + off + j);
-      qy.w[j] = __ldg(ty + off + j);
+      nx.w[j] = __ldg(tx + off + j);
+      ny.w[j] = __ldg(ty + off + j);
     }
-    tm.add_mixed(P, qx, qy);
+  };
+  load(0, nd);
+#pragma unroll 1
+  for (int w = 0; w < WINDOWS; ++w) {
+    const uint32_t d = nd;
+    const F qx = nx, qy = ny;
+    if (w + 1 < WINDOWS) {
+      nd = digit(w + 1);
+      load(w + 1, nd);
+    }
+    if (d != 0) tm.add_mixed(P, qx, qy);  // k = 0 slots are the identity: keep the point
   }
-  if (tm.team == 0) {
+  if (tm.team == 0 && holds) {
     const int64_t o = e * NL + tm.k * LW;
 #pragma unroll
     for (int j = 0; j < LW; ++j) {
@@ -443,34 +446,21 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-template <int TL, int NT>
-cudaError_t launch(const void* scalars, const void* tx, const void* ty, void* ox, void* oy,
-                   void* oz, long long n, cudaStream_t stream) {
-  constexpr int PER_BLOCK = THREADS / (TL * NT);
-  const long long blocks = (n + PER_BLOCK - 1) / PER_BLOCK;
-  g1_comb_kernel<TL, NT><<<(unsigned)blocks, THREADS, 0, stream>>>(
-      (const uint32_t*)scalars, (const uint32_t*)tx, (const uint32_t*)ty, (uint32_t*)ox,
-      (uint32_t*)oy, (uint32_t*)oz, n);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
-// n >= 1 scalars; split picks lanes per team x teams: 0 = 4 x 4, 1 = 2 x 4, 2 = 4 x 2.
+// n >= 1 scalars.
 extern "C" int zk_g1_comb(const void* scalars, const void* tx, const void* ty, void* ox, void* oy,
-                          void* oz, long long n, void* stream, int device, int split) {
+                          void* oz, long long n, void* stream, int device) {
   if (n < 1) return (int)cudaErrorInvalidValue;
   int prev = device;
   cudaError_t err = cudaGetDevice(&prev);
   if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (split == 1)
-    err = launch<2, 4>(scalars, tx, ty, ox, oy, oz, n, s);
-  else if (split == 2)
-    err = launch<4, 2>(scalars, tx, ty, ox, oy, oz, n, s);
-  else
-    err = launch<TEAM_LANES, TEAMS>(scalars, tx, ty, ox, oy, oz, n, s);
+  constexpr int PER_BLOCK = THREADS / 32;
+  g1_comb_kernel<<<(unsigned)((n + PER_BLOCK - 1) / PER_BLOCK), THREADS, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)scalars, (const uint32_t*)tx, (const uint32_t*)ty, (uint32_t*)ox,
+      (uint32_t*)oy, (uint32_t*)oz, n);
+  err = cudaGetLastError();
   if (prev != device) cudaSetDevice(prev);
   return (int)err;
 }

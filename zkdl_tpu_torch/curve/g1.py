@@ -6,12 +6,12 @@ Counterpart of the parts of ``zkdl_tpu/curve/g1.py`` on the prover's path:
 uint32 (..., 12) Montgomery Fp tensors; z == 0 encodes the identity.
 
 ``generator_pow`` on a CUDA tensor launches K4 (``csrc/g1_comb.cu``), which
-replaces the XLA loop of g1.py:generator_pow (:378-397): a group of lanes
-walks the 64 windows of one scalar, its teams computing the independent Fp
-products of each formula level side by side. On a CPU tensor it runs
-``generator_pow_plain``, the same branchless comb as the JAX code over the
-plain Fp ops. Bounded on an H100 by the chain of dependent Fp products of
-one scalar (5 levels per nonzero window), not by the multiply rate.
+replaces the XLA loop of g1.py:generator_pow (:378-397): a warp walks the 64
+windows of one scalar, its two teams computing the independent Fp products
+of each formula level side by side, one limb per lane. On a CPU tensor it
+runs ``generator_pow_plain``, the same branchless comb as the JAX code over
+the plain Fp ops. Bounded on an H100 by the chain of dependent Fp products
+of one scalar (5 levels per nonzero window), not by the multiply rate.
 """
 
 from __future__ import annotations
@@ -192,13 +192,13 @@ def _comb_lib() -> ctypes.CDLL:
     lib = build.load("g1_comb")
     if not getattr(lib, "_zk_typed", False):
         P = ctypes.c_void_p
-        lib.zk_g1_comb.argtypes = [P, P, P, P, P, P, ctypes.c_longlong, P, ctypes.c_int, ctypes.c_int]
+        lib.zk_g1_comb.argtypes = [P, P, P, P, P, P, ctypes.c_longlong, P, ctypes.c_int]
         lib.zk_g1_comb.restype = ctypes.c_int
         lib._zk_typed = True
     return lib
 
 
-def generator_pow(scalar: torch.Tensor, _split: int = 0) -> G1Jac:
+def generator_pow(scalar: torch.Tensor) -> G1Jac:
     """G ^ scalar for raw (non-Montgomery) uint32 (..., 8) scalars; all 256
     bits are used. Group-equal to double-and-add, and limb-for-limb equal to
     zkdl_tpu's generator_pow (same comb, same formulas)."""
@@ -218,7 +218,7 @@ def generator_pow(scalar: torch.Tensor, _split: int = 0) -> G1Jac:
             rc = _comb_lib().zk_g1_comb(
                 s2.data_ptr(), tx.data_ptr(), ty.data_ptr(),
                 pts[0].data_ptr(), pts[1].data_ptr(), pts[2].data_ptr(), n,
-                torch._C._cuda_getCurrentRawStream(idx), idx, _split,
+                torch._C._cuda_getCurrentRawStream(idx), idx,
             )
             if rc != 0:
                 raise RuntimeError(f"g1_comb: CUDA error {rc}")
