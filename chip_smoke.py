@@ -167,9 +167,9 @@ def comb_bound(scal) -> tuple[float, str]:
 
 
 def phase_comb_shapes(rng, dev) -> np.ndarray:
-    """K4 bit-equal to plain at every count where a group, a warp or a block
-    is partly filled (1, 2, 3, 7, 8, 9, 35, 256, 2048, 2049 scalars) and on
-    the edge scalars, at the head of every count's set: 0, 1, r - 1,
+    """K4 bit-equal to plain at counts that fill its last block of 4 scalars
+    (one a warp) partly or wholly (1, 2, 3, 7, 8, 9, 35, 256, 2048, 2049)
+    and on the edge scalars, at the head of every count's set: 0, 1, r - 1,
     2^256 - 1 (top limb reduced, as setup draws it), r (the generic formula
     ends in z = 0 at window 63: p = -q there) and 2^256 - r (window 63 adds
     equal points: double). Returns the 2049 scalars."""
@@ -261,8 +261,6 @@ def phase_kernels(records: dict) -> None:
                    bound_ms(3 * fr_b, FR_MUL_IMAD * n)),
         "fr_mul_scalar": ("(8, 2^22)", lambda: kernels.mul_scalar(a, s), lambda: kernels.mul_scalar_plain(a, s),
                           bound_ms(2 * fr_b, FR_MUL_IMAD * n)),
-        "g1_comb": ("35 scalars", lambda: g1.generator_pow(sc35), lambda: g1.generator_pow_plain(sc35),
-                    comb_bound(sc35)),
     }
     for name, (shape, kfn, pfn, (bms, by)) in rows.items():
         ms = cuda_ms(kfn)
@@ -274,11 +272,13 @@ def phase_kernels(records: dict) -> None:
     comb = records["_g1_comb_shapes"] = {}
     for label, scal in (("35 scalars (one opening)", sc35), ("2048 scalars (setup, one layer's commitment)", sc2048)):
         ms, (bms, by) = cuda_ms(lambda: g1.generator_pow(scal), 10), comb_bound(scal)
+        pms = cuda_ms(lambda: g1.generator_pow_plain(scal), iters=2)
         nz = int((g1._digits(scal) != 0).sum().item())
-        comb[label] = {"ms": ms, "bound_ms": bms, "bound_by": by}
-        log(f"[kernels] g1_comb at {label}: {ms:.4f} ms (bound {bms:.6f} ms by {by}: {nz} nonzero windows x "
+        comb[label] = {"ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by}
+        log(f"[kernels] g1_comb at {label}: {ms:.4f} ms (plain {pms:.2f} ms, bound {bms:.6f} ms by {by}: {nz} nonzero windows x "
             f"{FP_MULS_PER_WINDOW} Fp products; the chain of one scalar is up to 64 windows x "
             f"{FP_LEVELS_PER_WINDOW} = {64 * FP_LEVELS_PER_WINDOW} dependent Fp-product levels)")
+    records["g1_comb"] = {**comb["35 scalars (one opening)"], "max_abs_err": errs["g1_comb"], "library_ms": None}
 
     # K3 in each regime of the main path. Bounds count each distinct input
     # once: a round's dot_many reads four halves, each in two of its pairs.

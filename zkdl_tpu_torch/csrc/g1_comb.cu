@@ -80,7 +80,7 @@ __device__ __forceinline__ uint32_t one_mont(int i) {  // mont(1) = 2^384 mod p
 
 struct Team {
   static constexpr int TL = TEAM_LANES, TW = TEAM_WIDTH, NT = TEAMS;
-  static constexpr int LW = NL / TL;   // limbs a lane
+  static constexpr int LW = NL / TL;  // limbs a lane
   static constexpr int GL = TW * NT;  // lanes a scalar
   static_assert(NL % TL == 0 && TL <= TW && (TW & (TW - 1)) == 0 && GL == 32,
                 "a team splits 12 limbs; a scalar takes one warp, so every decision is warp-uniform");
