@@ -2,7 +2,11 @@
 """Smoke test of the PyTorch/CUDA port on one GPU: the quickest proof that it
 builds and runs.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py           # every phase
+    python3 chip_smoke.py --comb    # phase 1 and K4's times only
+
+`--comb` times K4 on the same seeded scalars in any checkout of the port it
+is copied into, so that two versions can be compared in one call.
 
 Phases (each prints its own lines; any failure exits nonzero):
   1. the card's name and power limit; build of every CUDA kernel from csrc/
@@ -12,7 +16,8 @@ Phases (each prints its own lines; any failure exits nonzero):
      odd tails, every operand p - 1, dot_many of strided halves) and timed at
      each main-path regime (flat, batched rows, dot_many of a round); K4 on
      the edge scalars (0, 1, r - 1, 2^256 - 1, r, 2^256 - r) and at 1 to 2049
-     scalars, and timed at 35 (an opening) and 2048 (a commitment)
+     scalars, and timed at 35 (an opening) and 2048 (a commitment) on random
+     scalars below r, drawn as setup draws them
   3. a small model proved on the card and on the CPU (plain versions): every
      proof array identical, unchained SeededRng and chained Fiat-Shamir
   4. zkdl256 (8 layers at full width, batch 256) through the port's bench
@@ -39,8 +44,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 IMAD_PER_S = 16.7e12
 FR_MUL_IMAD = 2 * 2 * 8 * 8 + 8  # CIOS: 128 wide products (lo + hi) + 8 m's
 FR_DOT_IMAD = 2 * 8 * 8  # K3's lazy product: 64 wide products (lo + hi), no reduction
-FP_MUL_IMAD = 2 * 2 * 12 * 12 + 12
-FP_MULS_PER_WINDOW = 11  # add_mixed, generic case
+FP_MUL_IMAD = 2 * 2 * 12 * 12 + 12  # CIOS: a b and m p, 144 wide products each (lo + hi), + 12 m's
+FP_SQR_IMAD = 2 * 78 + 2 * 12 * 12 + 12  # a^2 needs the 78 wide products a_i a_j, i <= j
+FP_MULS_PER_WINDOW, FP_SQRS_PER_WINDOW = 7, 4  # add_mixed, generic case; squarings z1z1, hh, rr, zh2
 FP_LEVELS_PER_WINDOW = 5  # add_mixed's levels of dependent products (K4 runs each level's products side by side)
 Y_HAT_TOL = 1e-4  # zkdl256 Y_hat vs the float64 forward (see phase_zkdl256)
 
@@ -155,24 +161,65 @@ def phase_dot_shapes(rng, dev) -> None:
         "and (8,2048,2048).(8,1,2048); dot_many of 3 and 4 strided halves at n = 2^21 and 2^10")
 
 
-def comb_bound(scal) -> tuple[float, str]:
-    """K4's least time: scalars, the two (64, 16, 12) tables and the (n, 12)
-    x, y, z read or written once, against the multiply-adds of 11 Fp products
-    per nonzero window of these scalars."""
+def comb_generic_windows(scal) -> int:
+    """The windows of these scalars that run add_mixed's generic formula. On
+    a scalar k below r, window w adds d 16^w to a prefix below 16^w, and the
+    sum is at most k < r: the two never agree or cancel mod r, so no window
+    adds equal points or ends at the identity. Every nonzero window runs the
+    generic formula but a scalar's first, which lifts its entry with no
+    product."""
     from zkdl_tpu_torch.curve import g1
 
+    nonzero = g1._digits(scal) != 0
+    return int(nonzero.sum().item()) - int(nonzero.any(dim=1).sum().item())
+
+
+def comb_bound(scal) -> tuple[float, str]:
+    """K4's least time on scalars below r: scalars, the two (64, 16, 12)
+    tables and the (n, 12) x, y, z read or written once, against the
+    multiply-adds of 7 Fp products and 4 squarings per generic window."""
     n = scal.shape[0]
-    nz = int((g1._digits(scal) != 0).sum().item())
-    return bound_ms(n * 32 + 2 * 64 * 16 * 48 + n * 3 * 48, nz * FP_MULS_PER_WINDOW * FP_MUL_IMAD)
+    ops = comb_generic_windows(scal) * (FP_MULS_PER_WINDOW * FP_MUL_IMAD + FP_SQRS_PER_WINDOW * FP_SQR_IMAD)
+    return bound_ms(n * 32 + 2 * 64 * 16 * 48 + n * 3 * 48, ops)
 
 
-def phase_comb_shapes(rng, dev) -> np.ndarray:
+def comb_timing_sets(dev) -> dict:
+    """K4's timed inputs: 2048 random scalars below r, drawn as setup draws
+    them (a commitment's shape), and the first 35 of them (an opening)."""
+    import torch
+    from zkdl_tpu_torch.commit.pedersen import random_fr
+
+    sc = torch.from_numpy(random_fr(np.random.default_rng(7), 2048)).to(dev)
+    return {"35 scalars (one opening)": sc[:35].contiguous(), "2048 scalars (setup, one layer's commitment)": sc}
+
+
+def phase_comb_times(dev, with_plain: bool = True) -> dict:
+    """K4's time at an opening's and a commitment's shape beside its bound
+    (and its plain version's time)."""
+    from zkdl_tpu_torch.curve import g1
+
+    out = {}
+    for label, scal in comb_timing_sets(dev).items():
+        ms, (bms, by) = cuda_ms(lambda: g1.generator_pow(scal), 10), comb_bound(scal)
+        out[label] = {"ms": ms, "bound_ms": bms, "bound_by": by}
+        plain = ""
+        if with_plain:
+            out[label]["plain_ms"] = pms = cuda_ms(lambda: g1.generator_pow_plain(scal), iters=2)
+            plain = f"plain {pms:.2f} ms, "
+        log(f"[kernels] g1_comb at {label}: {ms:.4f} ms ({plain}bound {bms:.6f} ms by {by}, {100 * bms / ms:.1f}% of "
+            f"it: {comb_generic_windows(scal)} generic windows x ({FP_MULS_PER_WINDOW} Fp products + "
+            f"{FP_SQRS_PER_WINDOW} squarings); the chain of one scalar is up to 64 windows x "
+            f"{FP_LEVELS_PER_WINDOW} = {64 * FP_LEVELS_PER_WINDOW} dependent Fp-product levels)")
+    return out
+
+
+def phase_comb_shapes(rng, dev) -> None:
     """K4 bit-equal to plain at counts that fill its last block of 4 scalars
     (one a warp) partly or wholly (1, 2, 3, 7, 8, 9, 35, 256, 2048, 2049)
     and on the edge scalars, at the head of every count's set: 0, 1, r - 1,
     2^256 - 1 (top limb reduced, as setup draws it), r (the generic formula
     ends in z = 0 at window 63: p = -q there) and 2^256 - r (window 63 adds
-    equal points: double). Returns the 2049 scalars."""
+    equal points: double)."""
     import torch
     from zkdl_tpu_torch.curve import g1
     from zkdl_tpu_torch.field import fr
@@ -195,7 +242,6 @@ def phase_comb_shapes(rng, dev) -> np.ndarray:
     log("[kernels] g1_comb bit-equal to plain at n = 1, 2, 3, 7, 8, 9, 35, 256, 2048, 2049, each set headed by the "
         "edge scalars 0, 1, r-1, 2^256-1 (reduced), r (ends in z = 0 through the generic formula) and 2^256-r "
         "(window 63 adds equal points: double), and each edge scalar alone")
-    return sc
 
 
 def phase_kernels(records: dict) -> None:
@@ -226,7 +272,7 @@ def phase_kernels(records: dict) -> None:
     log("[kernels] fr_dot (8,64,4096).(8,1,4096) bit-equal to plain")
     phase_dot_shapes(rng, dev)
 
-    sc = phase_comb_shapes(rng, dev)
+    phase_comb_shapes(rng, dev)
 
     # the main path's largest shapes (zkdl256): 2^22-element round halves for
     # K1-K3; the batched (8,2048,2048).(8,1,2048) dot of commit rows and the
@@ -237,8 +283,6 @@ def phase_kernels(records: dict) -> None:
     s = scalars[-1]
     A = _rand_fr(rng, 2048 * 2048, dev).reshape(8, 2048, 2048)
     T = _rand_fr(rng, 2048, dev).reshape(8, 1, 2048)
-    sc35 = torch.from_numpy(sc[6:41]).to(dev)
-    sc2048 = torch.from_numpy(sc[:2048]).to(dev)
 
     def comb_err(scal) -> int:
         return max_abs_err(torch.cat(list(g1.generator_pow(scal))), torch.cat(list(g1.generator_pow_plain(scal))))
@@ -248,7 +292,7 @@ def phase_kernels(records: dict) -> None:
         "fr_mul_scalar": max_abs_err(kernels.mul_scalar(a, s), kernels.mul_scalar_plain(a, s)),
         "fr_dot": max(max_abs_err(kernels.dot(a, b), kernels.dot_plain(a, b)),
                       max_abs_err(kernels.dot(A, T), kernels.dot_plain(A, T))),
-        "g1_comb": max(comb_err(sc35), comb_err(sc2048)),
+        "g1_comb": max(comb_err(scal) for scal in comb_timing_sets(dev).values()),
     }
     if any(errs.values()):
         raise AssertionError(f"kernels differ from their plain versions at main-path shapes: {errs}")
@@ -269,15 +313,7 @@ def phase_kernels(records: dict) -> None:
                          "max_abs_err": errs[name], "library_ms": None}
         log(f"[kernels] {name} at {shape}: {ms:.4f} ms (plain {pms:.2f} ms, bound {bms:.4f} ms by {by}; "
             "no single PyTorch call computes this)")
-    comb = records["_g1_comb_shapes"] = {}
-    for label, scal in (("35 scalars (one opening)", sc35), ("2048 scalars (setup, one layer's commitment)", sc2048)):
-        ms, (bms, by) = cuda_ms(lambda: g1.generator_pow(scal), 10), comb_bound(scal)
-        pms = cuda_ms(lambda: g1.generator_pow_plain(scal), iters=2)
-        nz = int((g1._digits(scal) != 0).sum().item())
-        comb[label] = {"ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by}
-        log(f"[kernels] g1_comb at {label}: {ms:.4f} ms (plain {pms:.2f} ms, bound {bms:.6f} ms by {by}: {nz} nonzero windows x "
-            f"{FP_MULS_PER_WINDOW} Fp products; the chain of one scalar is up to 64 windows x "
-            f"{FP_LEVELS_PER_WINDOW} = {64 * FP_LEVELS_PER_WINDOW} dependent Fp-product levels)")
+    comb = records["_g1_comb_shapes"] = phase_comb_times(dev)
     records["g1_comb"] = {**comb["35 scalars (one opening)"], "max_abs_err": errs["g1_comb"], "library_ms": None}
 
     # K3 in each regime of the main path. Bounds count each distinct input
@@ -438,6 +474,9 @@ def main() -> int:
     t0 = time.perf_counter()
     records: dict = {}
     phase_build()
+    if sys.argv[1:] == ["--comb"]:
+        print(json.dumps({"g1_comb_shapes": phase_comb_times(torch.device("cuda"), with_plain=False)}), flush=True)
+        return 0
     phase_kernels(records)
     log(f"[time] phases 1-2: {time.perf_counter() - t0:.1f}s")
     phase_small()

@@ -131,50 +131,25 @@ def test_integer_comb_matches_generator_pow_plain_and_host_oracle():
 
 # ---------------------------------------------------------------------------
 # word-level model of the team arithmetic of csrc/g1_comb.cu: the same lane
-# layout (lane k < TEAM_LANES of a team holds limbs LW k .. LW k + LW - 1 of
-# every Fp value; the team's other lanes idle) and the same step order as
-# Team::mul, Team::add, Team::sub
+# layout (lane k < 12 of a team holds limb k of every Fp value; the team's
+# other four lanes idle) and the same step order as Team::mul, Team::add,
+# Team::sub
 # ---------------------------------------------------------------------------
 
-TL = _const("TEAM_LANES")
-LW = 12 // TL
+NL = 12  # lanes of a team that hold a limb
 NP0 = (-pow(P, -1, 1 << 32)) % (1 << 32)
-BITS = (1 << TL) - 1
+BITS = (1 << NL) - 1
 
 
 def _split(x: int):
-    w = [(x >> (32 * i)) & M32 for i in range(12)]
-    return [w[k * LW:(k + 1) * LW] for k in range(TL)]
+    return [(x >> (32 * k)) & M32 for k in range(NL)]
 
 
 def _join(lanes) -> int:
-    return sum(w << (32 * (k * LW + j)) for k, lane in enumerate(lanes) for j, w in enumerate(lane))
+    return sum(w << (32 * k) for k, w in enumerate(lanes))
 
 
 PL = _split(P)
-ZERO = [0] * LW
-
-
-def _add_words(x, y, c):
-    out = []
-    for a, b in zip(x, y):
-        v = a + b + c
-        out.append(v & M32)
-        c = v >> 32
-    return out, c
-
-
-def _sub_words(x, y, b):
-    out = []
-    for a, c in zip(x, y):
-        v = a - c - b
-        out.append(v & M32)
-        b = int(v < 0)
-    return out, b
-
-
-def _all_ones(x):
-    return all(w == M32 for w in x)
 
 
 def _resolve(flags, drop=None):
@@ -189,88 +164,81 @@ def _resolve(flags, drop=None):
     P2 = ((o201 & ~C1) | (o211 & C1)) & ~G2
     S2 = (G2 << 1) + P2
     C2 = S2 ^ P2
-    in1 = [0 if drop == "stage 1" else (C1 >> k) & 1 for k in range(TL)]
-    in2 = [0 if drop == "stage 2" else (C2 >> k) & 1 for k in range(TL)]
-    return in1, in2, S1 >> TL, S2 >> TL
+    in1 = [0 if drop == "stage 1" else (C1 >> k) & 1 for k in range(NL)]
+    in2 = [0 if drop == "stage 2" else (C2 >> k) & 1 for k in range(NL)]
+    return in1, in2, S1 >> NL, S2 >> NL
 
 
 def _add(x, y, drop=None):
     """Team::add: (x + y) mod p for x + y < 2p."""
     flags, s0s, s1s = [], [], []
-    for k in range(TL):
-        s0, o10 = _add_words(x[k], y[k], 0)
-        s1, _ = _add_words(s0, ZERO, 1)
-        o200 = _sub_words(s0, PL[k], 0)[1]
-        o210 = _sub_words(s1, PL[k], 0)[1]
-        flags.append((o10, o10 or _all_ones(s0), o200, o200 or s0 == PL[k], o210, o210 or s1 == PL[k]))
+    for k in range(NL):
+        s0 = (x[k] + y[k]) & M32
+        s1 = (s0 + 1) & M32
+        o10 = s0 < x[k]
+        flags.append((o10, o10 or s0 == M32, s0 < PL[k], s0 <= PL[k], s1 < PL[k], s1 <= PL[k]))
         s0s.append(s0)
         s1s.append(s1)
     in1, in2, _, top2 = _resolve(flags, drop)
-    s = [s1s[k] if in1[k] else s0s[k] for k in range(TL)]
-    d = [_sub_words(s[k], PL[k], in2[k])[0] for k in range(TL)]
-    return s if top2 else d
+    s = [s1s[k] if in1[k] else s0s[k] for k in range(NL)]
+    return s if top2 else [(s[k] - PL[k] - in2[k]) & M32 for k in range(NL)]
 
 
 def _sub(x, y, drop=None):
     """Team::sub: (x - y) mod p."""
     flags, d0s, d1s = [], [], []
-    for k in range(TL):
-        d0, o10 = _sub_words(x[k], y[k], 0)
-        d1, _ = _sub_words(d0, ZERO, 1)
-        s, o200 = _add_words(d0, PL[k], 0)
-        s1, o210 = _add_words(d1, PL[k], 0)
-        flags.append((o10, o10 or x[k] == y[k], o200, o200 or _all_ones(s), o210, o210 or _all_ones(s1)))
+    for k in range(NL):
+        d0 = (x[k] - y[k]) & M32
+        d1 = (d0 - 1) & M32
+        s0, s1 = (d0 + PL[k]) & M32, (d1 + PL[k]) & M32
+        o200, o210 = s0 < PL[k], s1 < PL[k]
+        flags.append((x[k] < y[k], x[k] <= y[k], o200, o200 or s0 == M32, o210, o210 or s1 == M32))
         d0s.append(d0)
         d1s.append(d1)
     in1, in2, top1, _ = _resolve(flags, drop)
-    d = [d1s[k] if in1[k] else d0s[k] for k in range(TL)]
-    s = [_add_words(d[k], PL[k], in2[k])[0] for k in range(TL)]
-    return s if top1 else d
+    d = [d1s[k] if in1[k] else d0s[k] for k in range(NL)]
+    return [(d[k] + PL[k] + in2[k]) & M32 for k in range(NL)] if top1 else d
 
 
 def _row(t, x, y):
-    """Team::row: t += x * y over a lane's words; returns the carry out."""
-    c = 0
-    for j in range(LW):
-        v = x[j] * y + t[j] + c
-        assert v < 1 << 64
-        t[j], c = v & M32, v >> 32
-    return c
+    """Team::row: t + x y as (new word, high word for the pending carry)."""
+    v = x * y + t
+    assert v <= (1 << 64) - (1 << 32)
+    return v & M32, v >> 32
 
 
-def _shift(t, up, e, drop=None):
-    """Team::shift: one word down; the pending carry lands on the new top."""
-    t[:] = t[1:] + [0]
+def _shift(up, e, drop=None):
+    """Team::shift: the word that lands, plus the carry pending into it."""
     v = up + (0 if drop == "pending" else e)
-    t[LW - 1] = v & M32
-    return v >> 32
+    return v & M32, v >> 32
 
 
 def _mul(a, b, drop=None):
     """Team::mul: a * b * 2^-384 mod p, operand scanning over b's limbs."""
-    bl = [b[i // LW][i % LW] for i in range(12)]
     a0, p0 = a[0], PL[0]
-    t = [[0] * LW for _ in range(TL)]
-    e = [0] * TL
-    s, es = [0] * LW, 0
-    for i in range(12):
-        for k in range(TL):
-            e[k] += _row(t[k], a[k], bl[i])
-        es += _row(s, a0, bl[i])
-        m = s[0] * NP0 & M32
-        for k in range(TL):
-            e[k] += _row(t[k], PL[k], m)
-        es += _row(s, p0, m)
-        assert t[0][0] == 0 and s == t[0] and es == e[0]  # every lane's copy of lane 0 is exact
+    t, e = [0] * NL, [0] * NL
+    s, es = 0, 0
+    for i in range(NL):
+        for k in range(NL):
+            t[k], hi = _row(t[k], a[k], b[i])
+            e[k] += hi
+        s, hi = _row(s, a0, b[i])
+        es += hi
+        m = s * NP0 & M32
+        for k in range(NL):
+            t[k], hi = _row(t[k], PL[k], m)
+            e[k] += hi
+        s, hi = _row(s, p0, m)
+        es += hi
+        assert t[0] == 0 and s == t[0] and es == e[0]  # every lane's copy of lane 0 is exact
         assert max(e) < 4 + 2 * (1 << 32)
-        up = [t[k + 1][0] if k + 1 < TL else 0 for k in range(TL)]
-        up_s = t[1][0]
-        e = [_shift(t[k], up[k], e[k], drop) for k in range(TL)]
-        es = _shift(s, up_s, es, drop)
+        up = [t[k + 1] if k + 1 < NL else 0 for k in range(NL)]
+        up_s = t[1]
+        t, e = map(list, zip(*(_shift(up[k], e[k], drop) for k in range(NL))))
+        s, es = _shift(up_s, es, drop)
         assert max(e) < 4
-    assert e[TL - 1] == 0
-    y = [[e[k - 1] if k else 0] + [0] * (LW - 1) for k in range(TL)]
-    return _add(t, y, drop)
+    assert e[NL - 1] == 0
+    return _add(t, [0] + e[:-1], drop)
 
 
 RINV = pow(1 << 384, -1, P)
@@ -289,8 +257,7 @@ def _operands(kind: str, n: int = 96):
         return [(rng.randrange(P), rng.randrange(P)) for _ in range(n)]
     out = []
     while len(out) < n:
-        lanes = [rng.choice([[0] * LW, [M32] * LW, PL[k], [rng.getrandbits(32) for _ in range(LW)]])
-                 for k in range(TL)]
+        lanes = [rng.choice([0, M32, PL[k], rng.getrandbits(32)]) for k in range(NL)]
         z = _join(lanes) % P
         y = rng.randrange(1, P)
         out.append((z * (1 << 384) * pow(y, -1, P) % P, y))  # mul result z
@@ -326,8 +293,9 @@ def test_team_model_fails_when_a_carry_is_dropped(drop):
 
 
 def test_kernel_source_matches_the_model():
-    """The model's team shape and p' are the kernel's; a scalar's teams fill
-    one warp, so its decisions are warp-uniform and its ballots whole-warp."""
-    width, teams, threads = _const("TEAM_WIDTH"), _const("TEAMS"), _const("THREADS")
-    assert 12 % TL == 0 and TL <= width and width * teams == 32 and threads % 32 == 0
-    assert re.search(rf"NP0 = 0x{NP0:08x}u", (build.CSRC / "field.cuh").read_text())
+    """The model's team shape and p' are the kernel's: a team of 16 lanes whose
+    first 12 hold a limb each, two teams a warp (one scalar a warp, so its
+    decisions are warp-uniform and its ballots whole-warp)."""
+    assert _const("TEAM_WIDTH") == 16 and _const("THREADS") % 32 == 0
+    field = (build.CSRC / "field.cuh").read_text()
+    assert re.search(rf"NP0 = 0x{NP0:08x}u", field) and re.search(rf"N = {NL};", field)

@@ -26,29 +26,29 @@
 // them. In one thread a 12-limb product is a long serial carry chain: the
 // one-thread kernel this replaces took ~43 us a window.
 //
-// The design: one warp serves one scalar, as TEAMS teams of TEAM_WIDTH lanes;
-// the first TEAM_LANES lanes of a team hold LW = 12 / TEAM_LANES limbs each
-// of every Fp value (one), the rest idle. Every team holds the whole point.
-// The products of one level run side by side, one per team (a level of three
-// takes two rounds), and each result reaches the other team by a shuffle
-// (both lay out limbs alike). A Montgomery product is operand scanning over
-// b's 12 limbs spread over a team: each lane adds its limbs of a b_i and of
-// m p into its words with carry chains only LW words long, and the
-// accumulator shifts one word down the team with a shuffle. Every lane also
-// keeps a copy of lane 0's words (fed lane 1's word at each shift), so each
-// computes m = t_0 p' mod 2^32 itself and no shuffle of m stands in the
-// chain. A lane's carry out of its top word stays pending (e) and is added
-// where that word lands after the shift, so lane 0's words never have a
-// carry pending into them and t_0 is exact. Bounds, with words < 2^32: each
-// wide multiply-add x y + t + c <= 2^64 - 1; during a step e < 4 + 2^33;
+// The design: one warp serves one scalar, as two teams of 16 lanes; lane
+// k < 12 of a team holds limb k of every Fp value, lanes 12-15 idle. Both
+// teams hold the whole point. The products of one level run side by side,
+// one per team (a level of three takes two rounds), and each result reaches
+// the other team by a shuffle (both lay out limbs alike). A Montgomery
+// product is operand scanning over b's 12 limbs spread over a team: each
+// lane adds its limb's a b_i and m p into its word with one wide multiply-add
+// each, and the accumulator shifts one word down the team with a shuffle.
+// Every lane also keeps a copy of lane 0's word (fed lane 1's word at each
+// shift), so each computes m = t_0 p' mod 2^32 itself and no shuffle of m
+// stands in the chain. A lane's carry out of its word stays pending (e) and
+// is added where that word lands after the shift, so lane 0's word never has
+// a carry pending into it and t_0 is exact. Bounds, with words < 2^32: each
+// wide multiply-add x y + t <= 2^64 - 2^32; during a step e < 4 + 2^33;
 // after the shift e < 4. After the 12 steps the pending e go up one lane,
 // and one two-stage operation resolves the carries this leaves between lanes
 // and the conditional subtract of p (see Team::resolve); add, sub and double
 // are the same two-stage operation. The carry flags are gathered by ballots
-// of the whole warp: all of a warp's decisions (zero digit, identity, equal
-// points) are its scalar's, so the warp never diverges: ptxas guards every
-// ballot and shuffle with a divergence test whose slow path is a loop, and
-// a ballot over part of a warp takes that path even in a converged warp.
+// of the whole warp, and every shuffle spans the whole warp: all of a warp's
+// decisions (zero digit, identity, equal points) are its scalar's, so the
+// warp never diverges. (ptxas guards every ballot and shuffle with a
+// divergence test whose slow path is a loop; a ballot over part of a warp
+// takes that path even in a converged warp.)
 //
 // Grid: 128-thread blocks, 4 scalars a block; a warp past n exits.
 //
@@ -62,14 +62,13 @@
 
 namespace {
 
-constexpr int NL = FpSpec::N;
+constexpr int NL = FpSpec::N;  // limbs of an Fp value = lanes of a team that hold one
 constexpr int WINDOWS = 64;
 constexpr int ENTRIES = 16;
 constexpr int THREADS = 128;
-constexpr int TEAM_LANES = 12;  // lanes of a team that hold limbs
-constexpr int TEAM_WIDTH = 16;  // lanes a team spans (the others idle)
-constexpr int TEAMS = 2;        // teams a scalar
+constexpr int TEAM_WIDTH = 16;  // lanes a team spans; two teams fill a warp
 constexpr unsigned FULL = 0xffffffffu;
+constexpr uint32_t TEAM_BITS = (1u << NL) - 1;
 
 __device__ __forceinline__ uint32_t one_mont(int i) {  // mont(1) = 2^384 mod p
   constexpr uint32_t ONE[NL] = {0x0002fffdu, 0x76090000u, 0xc40c0002u, 0xebf4000bu,
@@ -78,102 +77,40 @@ __device__ __forceinline__ uint32_t one_mont(int i) {  // mont(1) = 2^384 mod p
   return ONE[i];
 }
 
+// An Fp value is one uint32_t a lane: lane k's limb.
 struct Team {
-  static constexpr int TL = TEAM_LANES, TW = TEAM_WIDTH, NT = TEAMS;
-  static constexpr int LW = NL / TL;  // limbs a lane
-  static constexpr int GL = TW * NT;  // lanes a scalar
-  static_assert(NL % TL == 0 && TL <= TW && (TW & (TW - 1)) == 0 && GL == 32,
-                "a team splits 12 limbs; a scalar takes one warp, so every decision is warp-uniform");
-  static constexpr uint32_t TEAM_BITS = (1u << TL) - 1;
-
-  struct F {
-    uint32_t w[LW];
-  };
   struct Pt {
-    F x, y, z;
+    uint32_t x, y, z;
   };
 
-  int k;     // lane within the team (k >= TL: idle, holds don't-care words)
-  int team;  // team within the warp
-  int tbase;
-  unsigned tmask;
-  F p, one;  // this lane's limbs of p and of mont(1)
+  int k;      // lane within the team (k >= NL: idle, holds a don't-care word)
+  int team;   // 0 or 1
+  int tbase;  // the team's first lane in the warp
+  uint32_t p, one;  // this lane's limb of p and of mont(1)
 
-  __device__ explicit Team(int lane) {
-    k = lane % TW;
-    team = lane / TW;
-    tbase = lane - k;
-    tmask = TW == 32 ? FULL : ((1u << TW) - 1) << tbase;
-#pragma unroll
-    for (int j = 0; j < LW; ++j) p.w[j] = one.w[j] = 0;
+  __device__ explicit Team(int lane) : k(lane % TEAM_WIDTH), team(lane / TEAM_WIDTH), tbase(lane - k), p(0), one(0) {
 #pragma unroll
     for (int i = 0; i < NL; ++i) {
-      if (i / LW == k) {
-        p.w[i % LW] = FpSpec::p(i);
-        one.w[i % LW] = one_mont(i);
+      if (i == k) {
+        p = FpSpec::p(i);
+        one = one_mont(i);
       }
     }
-  }
-
-  // --- lane-local words ----------------------------------------------------
-
-  __device__ static uint32_t add_words(const F& x, const F& y, uint32_t c, F& s) {
-#pragma unroll
-    for (int j = 0; j < LW; ++j) {
-      const uint64_t v = (uint64_t)x.w[j] + y.w[j] + c;
-      s.w[j] = (uint32_t)v;
-      c = (uint32_t)(v >> 32);
-    }
-    return c;
-  }
-  __device__ static uint32_t sub_words(const F& x, const F& y, uint32_t b, F& d) {
-#pragma unroll
-    for (int j = 0; j < LW; ++j) {
-      const uint64_t v = (uint64_t)x.w[j] - y.w[j] - b;
-      d.w[j] = (uint32_t)v;
-      b = (uint32_t)(v >> 63);
-    }
-    return b;
-  }
-  __device__ static bool all_ones(const F& x) {
-    uint32_t a = 0xffffffffu;
-#pragma unroll
-    for (int j = 0; j < LW; ++j) a &= x.w[j];
-    return a == 0xffffffffu;
-  }
-  __device__ static bool same(const F& x, const F& y) {
-    uint32_t a = 0;
-#pragma unroll
-    for (int j = 0; j < LW; ++j) a |= x.w[j] ^ y.w[j];
-    return a == 0;
-  }
-  __device__ static bool nonzero(const F& x) {
-    uint32_t a = 0;
-#pragma unroll
-    for (int j = 0; j < LW; ++j) a |= x.w[j];
-    return a != 0;
-  }
-  __device__ static F pick(bool c, const F& x, const F& y) {
-    F r;
-#pragma unroll
-    for (int j = 0; j < LW; ++j) r.w[j] = c ? x.w[j] : y.w[j];
-    return r;
   }
 
   // --- team-wide carries ---------------------------------------------------
   //
   // Every add, sub and product ends in a two-stage operation over the team:
   // stage 1 adds (subtracts) two values, stage 2 subtracts (adds) p. Each
-  // lane computes the carry out of its words for every carry-in it could
-  // get: stage 1 for in = 0 and 1, stage 2 for each stage-1 carry-in and
-  // each stage-2 carry-in. Six ballots gather these flags of every lane,
-  // and every lane resolves both stages' carries from them by lookahead:
-  // with G = the lanes that carry out on in = 0 and P = the lanes that carry
-  // out only on in = 1, the carry-ins are ((G << 1) + P) ^ P and bit TL of
+  // lane computes the carry out of its word for every carry-in it could get:
+  // stage 1 for in = 0 and 1, stage 2 for each stage-1 carry-in and each
+  // stage-2 carry-in. Six ballots gather these flags of every lane, and
+  // every lane resolves both stages' carries from them by lookahead: with
+  // G = the lanes that carry out on in = 0 and P = the lanes that carry out
+  // only on in = 1, the carry-ins are ((G << 1) + P) ^ P and bit 12 of
   // (G << 1) + P is the carry out of the team.
 
-  // The team's lanes where f holds, as bits 0 .. TL - 1 (the warp is
-  // converged: a ballot of the whole warp is one VOTE).
+  // The team's lanes where f holds, as bits 0 .. 11.
   __device__ uint32_t flags(bool f) const { return (__ballot_sync(FULL, f) >> tbase) & TEAM_BITS; }
 
   struct Carries {
@@ -181,7 +118,7 @@ struct Team {
     uint32_t top1, top2;  // the team's carry out of stage 1, stage 2
   };
 
-  // o1[c]: stage-1 carry out for carry-in c; o2[c][b]: stage-2 carry out for
+  // o1c: stage-1 carry out for carry-in c; o2cb: stage-2 carry out for
   // stage-1 carry-in c and stage-2 carry-in b.
   __device__ Carries resolve(bool o10, bool o11, bool o200, bool o201, bool o210, bool o211) const {
     const uint32_t G1 = flags(o10), P1 = flags(o11) & ~G1;
@@ -189,206 +126,138 @@ struct Team {
     const uint32_t G2 = (flags(o200) & ~C1) | (flags(o210) & C1);
     const uint32_t P2 = ((flags(o201) & ~C1) | (flags(o211) & C1)) & ~G2;
     const uint32_t S2 = (G2 << 1) + P2;
-    return {(C1 >> k) & 1u, ((S2 ^ P2) >> k) & 1u, S1 >> TL, S2 >> TL};
+    return {(C1 >> k) & 1u, ((S2 ^ P2) >> k) & 1u, S1 >> NL, S2 >> NL};
   }
 
   // (x + y) mod p for x + y < 2p: stage 1 x + y, stage 2 minus p, kept when
   // it does not borrow out of the team.
-  __device__ F add(const F& x, const F& y) const {
-    F s0, s1, d;
-    const bool o10 = add_words(x, y, 0, s0);
-    const bool o11 = o10 || all_ones(s0);
-    add_words(s0, F{}, 1, s1);
-    const bool o200 = sub_words(s0, p, 0, d), o201 = o200 || same(s0, p);
-    const bool o210 = sub_words(s1, p, 0, d), o211 = o210 || same(s1, p);
+  __device__ uint32_t add(uint32_t x, uint32_t y) const {
+    const uint32_t s0 = x + y, s1 = s0 + 1;
+    const bool o10 = s0 < x, o11 = o10 || s0 == FULL;
+    const bool o200 = s0 < p, o201 = s0 <= p;
+    const bool o210 = s1 < p, o211 = s1 <= p;
     const Carries c = resolve(o10, o11, o200, o201, o210, o211);
-    const F s = pick(c.in1, s1, s0);
-    sub_words(s, p, c.in2, d);
-    return c.top2 ? s : d;
+    const uint32_t s = c.in1 ? s1 : s0;
+    return c.top2 ? s : s - p - c.in2;
   }
-  __device__ F dbl(const F& x) const { return add(x, x); }
+  __device__ uint32_t dbl(uint32_t x) const { return add(x, x); }
 
   // (x - y) mod p: stage 1 x - y, stage 2 plus p, taken when stage 1 borrows
   // out of the team (the carry out of stage 2 is dropped).
-  __device__ F sub(const F& x, const F& y) const {
-    F d0, d1, s;
-    const bool o10 = sub_words(x, y, 0, d0);
-    const bool o11 = o10 || same(x, y);
-    sub_words(d0, F{}, 1, d1);
-    const bool o200 = add_words(d0, p, 0, s), o201 = o200 || all_ones(s);
-    const bool o210 = add_words(d1, p, 0, s), o211 = o210 || all_ones(s);
+  __device__ uint32_t sub(uint32_t x, uint32_t y) const {
+    const uint32_t d0 = x - y, d1 = d0 - 1, s0 = d0 + p, s1 = d1 + p;
+    const bool o10 = x < y, o11 = x <= y;
+    const bool o200 = s0 < p, o201 = o200 || s0 == FULL;
+    const bool o210 = s1 < p, o211 = o210 || s1 == FULL;
     const Carries c = resolve(o10, o11, o200, o201, o210, o211);
-    const F d = pick(c.in1, d1, d0);
-    add_words(d, p, c.in2, s);
-    return c.top1 ? s : d;
+    const uint32_t d = c.in1 ? d1 : d0;
+    return c.top1 ? d + p + c.in2 : d;
   }
 
-  // One row of the product: t += x * y over this lane's words; the carry out
-  // of its top word is added to e.
-  __device__ static void row(uint32_t (&t)[LW], const F& x, uint32_t y, uint64_t& e) {
-    uint32_t c = 0;
-#pragma unroll
-    for (int j = 0; j < LW; ++j) {
-      const uint64_t v = (uint64_t)x.w[j] * y + t[j] + c;  // <= 2^64 - 1
-      t[j] = (uint32_t)v;
-      c = (uint32_t)(v >> 32);
-    }
-    e += c;
+  // t += x y; the high word is added to the pending carry e.
+  __device__ static void row(uint32_t& t, uint32_t x, uint32_t y, uint64_t& e) {
+    const uint64_t v = (uint64_t)x * y + t;  // <= 2^64 - 2^32
+    t = (uint32_t)v;
+    e += v >> 32;
   }
 
-  // Shift one word down the team: the new top word is `up` plus the carry
+  // Shift one word down the team: the new word is `up` plus the carry
   // pending into it.
-  __device__ static void shift(uint32_t (&t)[LW], uint32_t up, uint64_t& e) {
-#pragma unroll
-    for (int j = 0; j + 1 < LW; ++j) t[j] = t[j + 1];
+  __device__ static void shift(uint32_t& t, uint32_t up, uint64_t& e) {
     const uint64_t v = (uint64_t)up + e;
-    t[LW - 1] = (uint32_t)v;
+    t = (uint32_t)v;
     e = v >> 32;
   }
 
   // a * b * 2^-384 mod p over the team (see the note at the top).
-  __device__ F mul(const F& a, const F& b) const {
-    // b's limbs and lane 0's limbs of a and p, on every lane
-    uint32_t bl[NL];
+  __device__ uint32_t mul(uint32_t a, uint32_t b) const {
+    uint32_t bl[NL];  // b's limbs, on every lane
 #pragma unroll
-    for (int i = 0; i < NL; ++i) bl[i] = __shfl_sync(tmask, b.w[i % LW], i / LW, TW);
-    F a0, p0;
-#pragma unroll
-    for (int j = 0; j < LW; ++j) {
-      a0.w[j] = __shfl_sync(tmask, a.w[j], 0, TW);
-      p0.w[j] = FpSpec::p(j);
-    }
-    // t: this lane's words; s: lane 0's words, kept by every lane so that
-    // each computes m itself. e, es: the carries pending out of their top
-    // words (into the next lane's word 0; the last lane's into word 12).
-    uint32_t t[LW], s[LW];
-#pragma unroll
-    for (int j = 0; j < LW; ++j) t[j] = s[j] = 0;
+    for (int i = 0; i < NL; ++i) bl[i] = __shfl_sync(FULL, b, i, TEAM_WIDTH);
+    const uint32_t a0 = __shfl_sync(FULL, a, 0, TEAM_WIDTH), p0 = FpSpec::p(0);
+    // t: this lane's word; s: lane 0's word, kept by every lane so that each
+    // computes m itself. e, es: the carries pending out of them (into the
+    // next lane's word; the last lane's into word 12).
+    uint32_t t = 0, s = 0;
     uint64_t e = 0, es = 0;
 #pragma unroll
     for (int i = 0; i < NL; ++i) {
       row(t, a, bl[i], e);
       row(s, a0, bl[i], es);
-      const uint32_t m = s[0] * FpSpec::NP0;
+      const uint32_t m = s * FpSpec::NP0;
       row(t, p, m, e);
       row(s, p0, m, es);
-      // word 0 is now 0; every lane takes its next lane's word 0, the copy
-      // of lane 0 takes lane 1's
-      uint32_t up = __shfl_down_sync(tmask, t[0], 1, TW);
-      if (k >= TL - 1) up = 0;
-      const uint32_t up_s = __shfl_sync(tmask, t[0], 1, TW);
+      // word 0 is now 0; every lane takes its next lane's word, the copy of
+      // lane 0 takes lane 1's
+      uint32_t up = __shfl_down_sync(FULL, t, 1, TEAM_WIDTH);
+      if (k >= NL - 1) up = 0;
+      const uint32_t up_s = __shfl_sync(FULL, t, 1, TEAM_WIDTH);
       shift(t, up, e);  // e < 4 after the shift
       shift(s, up_s, es);
     }
     // the pending e (< 4; the last lane's is 0 since the result is < 2p <
     // 2^384) go up one lane; then one add with the carries left between lanes
     // and the conditional subtract of p
-    F x, y{};
-    y.w[0] = __shfl_up_sync(tmask, (uint32_t)e, 1, TW);
-    if (k == 0) y.w[0] = 0;
-#pragma unroll
-    for (int j = 0; j < LW; ++j) x.w[j] = t[j];
-    return add(x, y);
+    uint32_t y = __shfl_up_sync(FULL, (uint32_t)e, 1, TEAM_WIDTH);
+    if (k == 0) y = 0;
+    return add(t, y);
   }
 
-  // Team q's value of x, on every lane of the warp.
-  __device__ F from_team(const F& x, int q) const {
-    F r;
-#pragma unroll
-    for (int j = 0; j < LW; ++j) r.w[j] = __shfl_sync(FULL, x.w[j], q * TW + k);
-    return r;
-  }
-
-  // out[q] = a[q] * b[q] for the K independent products of one level: team t
-  // takes product r + t of round r (teams past the last product repeat it).
-  template <int K>
-  __device__ void level(const F (&a)[K], const F (&b)[K], F* out) const {
-#pragma unroll
-    for (int r = 0; r < K; r += NT) {
-      F x = a[r], y = b[r];
-#pragma unroll
-      for (int q = r + 1; q < K && q < r + NT; ++q) {
-        x = pick(team >= q - r, a[q], x);
-        y = pick(team >= q - r, b[q], y);
-      }
-      const F z = mul(x, y);
-#pragma unroll
-      for (int q = r; q < K && q < r + NT; ++q) out[q] = from_team(z, q - r);
-    }
+  // Two products side by side: team 0 computes x0 y0, team 1 x1 y1; every
+  // lane gets both.
+  __device__ void mul2(uint32_t x0, uint32_t y0, uint32_t x1, uint32_t y1, uint32_t& o0, uint32_t& o1) const {
+    const uint32_t z = mul(team ? x1 : x0, team ? y1 : y0);
+    o0 = __shfl_sync(FULL, z, k);
+    o1 = __shfl_sync(FULL, z, TEAM_WIDTH + k);
   }
 
   // dbl-2009-l (g1.py:double :90-103); p is not the identity here.
   __device__ void dbl_point(Pt& P) const {
-    F o[3];
-    {
-      const F a[3] = {P.x, P.y, P.y}, b[3] = {P.x, P.y, P.z};
-      level<3>(a, b, o);
-    }
-    const F A = o[0], B = o[1], yz = o[2];
-    const F E = add(dbl(A), A);
-    const F xb = add(P.x, B);
-    {
-      const F a[3] = {B, xb, E};
-      level<3>(a, a, o);
-    }
-    const F C = o[0], F_ = o[2];
-    const F D = dbl(sub(sub(o[1], A), C));
-    const F x3 = sub(sub(F_, D), D);
-    const F c8 = dbl(dbl(dbl(C)));
-    F y3[1];
-    {
-      const F a[1] = {sub(D, x3)}, b[1] = {E};
-      level<1>(a, b, y3);
-    }
+    uint32_t A, B, C, xb2;
+    mul2(P.x, P.x, P.y, P.y, A, B);
+    const uint32_t yz = mul(P.y, P.z);
+    const uint32_t E = add(dbl(A), A);
+    const uint32_t xb = add(P.x, B);
+    mul2(B, B, xb, xb, C, xb2);
+    const uint32_t F_ = mul(E, E);
+    const uint32_t D = dbl(sub(sub(xb2, A), C));
+    const uint32_t x3 = sub(sub(F_, D), D);
+    const uint32_t c8 = dbl(dbl(dbl(C)));
+    const uint32_t y3 = mul(sub(D, x3), E);
     P.z = dbl(yz);
     P.x = x3;
-    P.y = sub(y3[0], c8);
+    P.y = sub(y3, c8);
   }
 
-  // madd-2007-bl (g1.py:add_mixed :135-158) with its edge cases; every
-  // team holds the same point, so a team's flags decide for the warp.
-  __device__ void add_mixed(Pt& P, const F& qx, const F& qy) const {
-    if (flags(nonzero(P.z)) == 0) {  // identity + q = (qx, qy, mont(1))
+  // madd-2007-bl (g1.py:add_mixed :135-158) with its edge cases; both teams
+  // hold the same point, so a team's flags decide for the warp.
+  __device__ void add_mixed(Pt& P, uint32_t qx, uint32_t qy) const {
+    if (flags(P.z != 0) == 0) {  // identity + q = (qx, qy, mont(1))
       P.x = qx;
       P.y = qy;
       P.z = one;
       return;
     }
-    F o[3];
-    {
-      const F a[2] = {P.z, qy}, b[2] = {P.z, P.z};
-      level<2>(a, b, o);
-    }
-    const F z1z1 = o[0], qyz = o[1];
-    {
-      const F a[2] = {qx, qyz}, b[2] = {z1z1, z1z1};
-      level<2>(a, b, o);
-    }
-    const F u2 = o[0], s2 = o[1];
-    if (flags(!same(P.x, u2) || !same(P.y, s2)) == 0) {  // equal points: never on the prover's path
+    uint32_t z1z1, qyz, u2, s2;
+    mul2(P.z, P.z, qy, P.z, z1z1, qyz);
+    mul2(qx, z1z1, qyz, z1z1, u2, s2);
+    if (flags(P.x != u2 || P.y != s2) == 0) {  // equal points: never on the prover's path
       dbl_point(P);
       return;
     }
-    const F h = sub(u2, P.x);
-    const F r = dbl(sub(s2, P.y));
-    const F zh = add(P.z, h);
-    {
-      const F a[3] = {h, r, zh};
-      level<3>(a, a, o);
-    }
-    const F hh = o[0], rr = o[1], zh2 = o[2];
-    const F i = dbl(dbl(hh));
-    {
-      const F a[2] = {h, P.x}, b[2] = {i, i};
-      level<2>(a, b, o);
-    }
-    const F j = o[0], v = o[1];
-    const F x3 = sub(sub(rr, j), dbl(v));
-    {
-      const F a[2] = {sub(v, x3), P.y}, b[2] = {r, j};
-      level<2>(a, b, o);
-    }
-    P.y = sub(o[0], dbl(o[1]));
+    const uint32_t h = sub(u2, P.x);
+    const uint32_t r = dbl(sub(s2, P.y));
+    const uint32_t zh = add(P.z, h);
+    uint32_t hh, rr;
+    mul2(h, h, r, r, hh, rr);
+    const uint32_t zh2 = mul(zh, zh);
+    const uint32_t i = dbl(dbl(hh));
+    uint32_t j, v;
+    mul2(h, i, P.x, i, j, v);
+    const uint32_t x3 = sub(sub(rr, j), dbl(v));
+    uint32_t vr, yj;
+    mul2(sub(v, x3), r, P.y, j, vr, yj);
+    P.y = sub(vr, dbl(yj));
     P.z = sub(sub(zh2, z1z1), hh);
     P.x = x3;
   }
@@ -400,35 +269,27 @@ __global__ void __launch_bounds__(THREADS)
     g1_comb_kernel(const uint32_t* __restrict__ scalars, const uint32_t* __restrict__ tx,
                    const uint32_t* __restrict__ ty, uint32_t* __restrict__ ox,
                    uint32_t* __restrict__ oy, uint32_t* __restrict__ oz, int64_t n) {
-  using F = Team::F;
-  constexpr int LW = Team::LW;
   const int64_t e = ((int64_t)blockIdx.x * THREADS + threadIdx.x) / 32;
   if (e >= n) return;  // the whole warp
   const int lane = threadIdx.x & 31;
   const Team tm(lane);
-  const bool holds = tm.k < Team::TL;
+  const bool holds = tm.k < NL;
   const uint32_t sw = lane < 8 ? __ldg(scalars + e * 8 + lane) : 0u;
   auto digit = [&](int w) { return (__shfl_sync(FULL, sw, w >> 3) >> (4 * (w & 7))) & 15u; };
-  Team::Pt P;
-#pragma unroll
-  for (int j = 0; j < LW; ++j) P.x.w[j] = P.y.w[j] = P.z.w[j] = 0;
+  Team::Pt P{0, 0, 0};
   // this lane's limbs of the table entries, loaded a window ahead
-  F nx{}, ny{};
+  uint32_t nx = 0, ny = 0;
   uint32_t nd = digit(0);
   auto load = [&](int w, uint32_t d) {
     if (!holds) return;
-    const int64_t off = ((int64_t)w * ENTRIES + d) * NL + tm.k * LW;
-#pragma unroll
-    for (int j = 0; j < LW; ++j) {
-      nx.w[j] = __ldg(tx + off + j);
-      ny.w[j] = __ldg(ty + off + j);
-    }
+    const int64_t off = ((int64_t)w * ENTRIES + d) * NL + tm.k;
+    nx = __ldg(tx + off);
+    ny = __ldg(ty + off);
   };
   load(0, nd);
 #pragma unroll 1
   for (int w = 0; w < WINDOWS; ++w) {
-    const uint32_t d = nd;
-    const F qx = nx, qy = ny;
+    const uint32_t d = nd, qx = nx, qy = ny;
     if (w + 1 < WINDOWS) {
       nd = digit(w + 1);
       load(w + 1, nd);
@@ -436,13 +297,10 @@ __global__ void __launch_bounds__(THREADS)
     if (d != 0) tm.add_mixed(P, qx, qy);  // k = 0 slots are the identity: keep the point
   }
   if (tm.team == 0 && holds) {
-    const int64_t o = e * NL + tm.k * LW;
-#pragma unroll
-    for (int j = 0; j < LW; ++j) {
-      ox[o + j] = P.x.w[j];
-      oy[o + j] = P.y.w[j];
-      oz[o + j] = P.z.w[j];
-    }
+    const int64_t o = e * NL + tm.k;
+    ox[o] = P.x;
+    oy[o] = P.y;
+    oz[o] = P.z;
   }
 }
 
