@@ -9,7 +9,9 @@ builds and runs.
 is copied into, so that two versions can be compared in one call.
 
 Phases (each prints its own lines; any failure exits nonzero):
-  1. the card's name and power limit; build of every CUDA kernel from csrc/
+  1. the card's name and power limit, the host CPU's model; build of every
+     CUDA kernel from csrc/ and of the verifier's host library (native/),
+     all compilers started together
   2. each kernel against its plain PyTorch version on the card, bit for bit,
      with its time at a main-path shape beside its bound; K3 also at the
      shapes where its design can break (one warp, the last-block reduction,
@@ -19,18 +21,27 @@ Phases (each prints its own lines; any failure exits nonzero):
      scalars, and timed at 35 (an opening) and 2048 (a commitment) on random
      scalars below r, drawn as setup draws them
   3. a small model proved on the card and on the CPU (plain versions): every
-     proof array identical, unchained SeededRng and chained Fiat-Shamir
+     proof array identical, unchained SeededRng and chained Fiat-Shamir; the
+     card's proof accepted by the port's verifier on the card and, moved to
+     the CPU through the proof file format, by the same verifier there
   4. zkdl256 (8 layers at full width, batch 256) through the port's bench
-     path: build, infer, warm and steady prove, per-layer split, launch count
-     of every kernel (all > 0), every sumcheck checked by the host verifiers,
-     Y_hat against a float64 forward
+     path: build, infer, warm and steady prove, the proof's size, the port's
+     verifier with Fiat-Shamir replay (every sumcheck, every opening and its
+     binding to the row commitments, the chain, the ReLU recombination, the
+     public anchors on X and Y_hat), per-layer split, launch count of every
+     kernel (all > 0, K2 also within the verify), tampered copies of the
+     proof and of Y_hat each rejected with its expected reason, Y_hat
+     against a float64 forward
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import copy
+import io
 import json
+import os
 import subprocess
 import sys
 import time
@@ -93,16 +104,26 @@ def max_abs_err(a, b) -> int:
 # ---------------------------------------------------------------------------
 
 
-def phase_build() -> None:
+def phase_build(host_library: bool = True) -> None:
+    """host_library=False builds the CUDA kernels only (--comb, which also
+    runs in checkouts that predate the host library)."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     log(smi)
+    try:
+        lscpu = subprocess.run(["lscpu"], capture_output=True, text=True).stdout
+    except FileNotFoundError:
+        lscpu = ""
+    fields = {k.strip(): v.strip() for k, v in (l.split(":", 1) for l in lscpu.splitlines() if ":" in l)}
+    cpu = ", ".join(f"{k} {fields[k]}" for k in ("Vendor ID", "CPU family", "Model", "Model name")
+                    if k in fields) or "not read (no lscpu)"
+    log(f"[host] CPU {cpu}; {len(os.sched_getaffinity(0))} usable cores (the verifier's native threads)")
     from zkdl_tpu_torch.utils import build
 
-    secs = build.build_all()
-    log(f"[build] kernels built in {secs:.2f}s (0 = already built)")
+    secs = build.build_all(build.SOURCES + (build.HOST_SOURCES if host_library else ()))
+    log(f"[build] kernels and the verifier's host library built in {secs:.2f}s (0 = already built)")
     for name in build.SOURCES:
         log(f"[build] {name}: " + build.ptxas_report(name).replace("\n", " | "))
 
@@ -344,7 +365,7 @@ def phase_kernels(records: dict) -> None:
 def phase_small() -> None:
     from zkdl_tpu_torch.bench import make_weights
     from zkdl_tpu_torch.commit.pedersen import to_mont_rows
-    from zkdl_tpu_torch.io.proof_io import flatten
+    from zkdl_tpu_torch.io import proof_io
     from zkdl_tpu_torch.models import mlp, quantize
     from zkdl_tpu_torch.sumcheck.transcript import FiatShamir, SeededRng
 
@@ -353,21 +374,35 @@ def phase_small() -> None:
     X_np = np.random.default_rng(4).standard_normal((batch, dims[0])).astype(np.float32)
     for label, mk, chain in (("SeededRng(12345), chain=False", lambda: SeededRng(12345), False),
                              ("FiatShamir, chained", FiatShamir, True)):
-        flat = {}
+        flat, runs = {}, {}
         for device in ("cuda", "cpu"):
             model = mlp.MLP.from_float_weights(weights, np.random.default_rng(5), device)
             X = to_mont_rows(quantize.load_input(X_np, device))
             Y, Z, A, aux = model.infer(X)
             proof = model.prove(X, Y, Z, A, aux, mk(), chain=chain)
+            runs[device] = (model, X, Y, proof)
             flat[device] = {}
-            flatten(proof, "p", flat[device])
-            flatten([l.com for l in model.layers], "com", flat[device])
+            proof_io.flatten(proof, "p", flat[device])
+            proof_io.flatten([l.com for l in model.layers], "com", flat[device])
         if flat["cuda"].keys() != flat["cpu"].keys():
             raise AssertionError(f"{label}: proof trees differ")
         bad = [k for k in flat["cuda"] if not np.array_equal(flat["cuda"][k], flat["cpu"][k])]
         if bad:
             raise AssertionError(f"{label}: CUDA and CPU proofs differ at {bad[:5]}")
-        log(f"[small] dims {dims} batch {batch}, {label}: {len(flat['cuda'])} arrays identical on cuda and cpu")
+
+        def verify(model, X, Y, proof):
+            if chain:
+                return model.verify(proof, X=X, Y_hat=Y, transcript=FiatShamir())
+            return model.verify(proof, Y_hat=Y)
+
+        model, X, Y, proof = runs["cuda"]
+        on_card = verify(model, X, Y, proof)
+        moved = proof_io.load_proof(io.BytesIO(proof_io.serialize(proof)), device="cpu")
+        on_cpu = verify(*runs["cpu"][:3], moved)
+        if on_card != (True, "") or on_cpu != on_card:
+            raise AssertionError(f"{label}: verifier on the card {on_card}, on the CPU {on_cpu}")
+        log(f"[small] dims {dims} batch {batch}, {label}: {len(flat['cuda'])} arrays identical on cuda and cpu; "
+            f"the card's proof accepted by the port's verifier on the card and on the CPU")
 
 
 # ---------------------------------------------------------------------------
@@ -375,34 +410,54 @@ def phase_small() -> None:
 # ---------------------------------------------------------------------------
 
 
-def check_sumchecks(proof) -> int:
-    """Every FC/ReLU sumcheck of a chained proof through the host verifiers;
-    returns the number checked."""
-    from zkdl_tpu_torch.sumcheck import protocols as sc
+def flipped(t, idx):
+    """A copy of the uint32 tensor t (any device) with the low bit of t[idx]
+    flipped."""
+    import torch
+    from zkdl_tpu_torch.field import mp
 
-    ints = sc.scalars_to_ints
-    n_checked = 0
-    for i, p in enumerate(proof.fc_proofs):
-        res = sc.inner_product_verify(sc.polys_to_ints(p.ip_polys), ints(p.u_in), ints(p.z_claim)[0])
-        fa, fb = ints(p.ip_finals)
-        if not sc.inner_product_check_final(res, fa, fb):
-            raise AssertionError(f"fc[{i}] inner-product sumcheck rejected: {res.reason}")
-        n_checked += 1
-    for i, p in enumerate(proof.relu_proofs):
-        checks = [
-            ("mag", sc.binary_verify(sc.polys_to_ints(p.mag_polys), ints(p.u_z_bin), ints(p.v_z_bin), ints(p.mag_final)[0])),
-            ("rem", sc.binary_verify(sc.polys_to_ints(p.rem_polys), ints(p.u_r_bin), ints(p.v_r_bin), ints(p.rem_final)[0])),
-            ("hp", sc.hadamard_verify(sc.polys_to_ints(p.hp_polys), ints(p.u_hp), ints(p.v_hp), ints(p.hp_claim)[0], *ints(p.hp_finals))),
-            ("a", sc.hadamard_verify(sc.polys_to_ints(p.a_polys), ints(p.a_point), ints(p.u_recover),
-                                     ints(proof.fc_proofs[i + 1].ip_finals)[0], *ints(p.a_finals))),
-        ]
-        for name, res in checks:
-            if not res.ok:
-                raise AssertionError(f"relu[{i}] {name} sumcheck rejected: {res.reason}")
-            n_checked += 1
-        if ints(proof.fc_proofs[i].z_claim) != ints(p.x_at_va):
-            raise AssertionError(f"fc[{i}] z claim != relu[{i}] X(v_a)")
-    return n_checked
+    a = mp.host(t).copy()
+    a[idx] ^= 1
+    return torch.from_numpy(a).to(t.device)
+
+
+def check_tampered(res: dict) -> None:
+    """Tampered copies of zkdl256's proof and of Y_hat, each rejected by the
+    port's verifier with its expected reason. Each fails early in the
+    verifier's order: at the transcript replay or at the cheap opening
+    checks, before the row-commitment folds."""
+    from zkdl_tpu_torch.sumcheck.transcript import FiatShamir
+
+    model, proof, X, Y = res["model"], res["proof"], res["X"], res["Y_hat"]
+
+    def relu_a_polys(p):
+        p.relu_proofs[0].a_polys = flipped(p.relu_proofs[0].a_polys, (1, 2, 3))
+
+    def final_scalar(p):
+        p.fc_proofs[-1].opening.final_scalar = flipped(p.fc_proofs[-1].opening.final_scalar, (0,))
+
+    def com_at_u_row(p):
+        c = p.fc_proofs[0].opening.com_at_u_row
+        p.fc_proofs[0].opening.com_at_u_row = c._replace(x=flipped(c.x, (5,)))
+
+    n = len(model.layers)
+    cases = [
+        ("relu_proofs[0].a_polys", relu_a_polys, Y, "transcript: fc[0].u_in not derived from the transcript"),
+        ("fc_proofs[-1].opening.final_scalar", final_scalar, Y,
+         f"fc[{n - 1}]: open: final: final_gen^final_scalar != D"),
+        ("fc_proofs[0].opening.com_at_u_row.x", com_at_u_row, Y, "fc[0]: open: round 0: temp != D_k"),
+        ("Y_hat", None, flipped(Y, (1, 0)), f"transcript: fc[{n - 1}].u_bs not derived from the transcript"),
+    ]
+    for label, edit, Y_used, want in cases:
+        bad = proof
+        if edit is not None:
+            bad = copy.deepcopy(proof)
+            edit(bad)
+        t0 = time.perf_counter()
+        got = model.verify(bad, X=X, Y_hat=Y_used, transcript=FiatShamir())
+        if got != (False, want):
+            raise AssertionError(f"tampered {label}: verifier returned {got}, expected (False, {want!r})")
+        log(f"[zkdl256] tampered {label}: rejected in {time.perf_counter() - t0:.3f}s: {want}")
 
 
 def float_forward(weights, X_np) -> np.ndarray:
@@ -436,8 +491,13 @@ def phase_zkdl256(records: dict) -> None:
         if count <= 0:
             raise AssertionError(f"kernel {name} was not launched on the main path")
 
-    n_checked = check_sumchecks(res["proof"])
-    log(f"[zkdl256] {n_checked} sumchecks accepted by the host verifiers")
+    if (res["verify_ok"], res["verify_msg"]) != (True, ""):
+        raise AssertionError(f"the port's verifier rejected zkdl256's proof: {res['verify_msg']}")
+    log(f"[zkdl256] proof {res['proof_bytes']} bytes; accepted by MLP.verify(X, Y_hat, FiatShamir()) in "
+        f"{res['verify_s']:.3f}s host time; kernel launches in the verify: {json.dumps(res['verify_launches'])}")
+    if res["verify_launches"]["fr_mul_scalar"] <= 0:
+        raise AssertionError("the verify's MLE anchors launched no fr_mul_scalar (K2)")
+    check_tampered(res)
 
     # Y_hat is at scale 2^32 (input and weights at 2^16 each); each ReLU
     # rescales by 2^16 with rounding. The weights and input come from fixed
@@ -454,7 +514,8 @@ def phase_zkdl256(records: dict) -> None:
     if got.shape != want.shape or not np.isfinite(got).all() or err > Y_HAT_TOL:
         raise AssertionError(f"Y_hat disagrees with the float64 forward: {err}")
     records["_zkdl256"] = {k: res[k] for k in ("build_s", "infer_s", "warm_prove_s", "prove_s", "spp",
-                                               "prove_peak_gib", "launches_per_prove", "layer_s")}
+                                               "prove_peak_gib", "launches_per_prove", "layer_s",
+                                               "proof_bytes", "verify_s", "verify_launches")}
 
 
 # ---------------------------------------------------------------------------
@@ -473,8 +534,9 @@ def main() -> int:
         return 2
     t0 = time.perf_counter()
     records: dict = {}
-    phase_build()
-    if sys.argv[1:] == ["--comb"]:
+    comb_only = sys.argv[1:] == ["--comb"]
+    phase_build(host_library=not comb_only)
+    if comb_only:
         print(json.dumps({"g1_comb_shapes": phase_comb_times(torch.device("cuda"), with_plain=False)}), flush=True)
         return 0
     phase_kernels(records)

@@ -6,28 +6,12 @@ import pytest
 
 from port_helpers import jax_model, to_jax
 from zkdl_tpu.sumcheck.transcript import FiatShamir as JaxFiatShamir
-from zkdl_tpu_torch.bench import make_weights
-from zkdl_tpu_torch.commit import pedersen
-from zkdl_tpu_torch.models import mlp, quantize
-from zkdl_tpu_torch.sumcheck.transcript import FiatShamir
-
-
-@pytest.fixture(scope="module")
-def proved():
-    dims, batch = [8, 8, 8], 2
-    model = mlp.MLP.from_float_weights(make_weights(dims, np.random.default_rng(60)),
-                                       np.random.default_rng(61), device="cpu")
-    x = np.random.default_rng(62).standard_normal((batch, dims[0])).astype(np.float32)
-    X = pedersen.to_mont_rows(quantize.load_input(x, "cpu"))
-    Y, Z, A, aux = model.infer(X)
-    proof = model.prove(X, Y, Z, A, aux, FiatShamir())
-    return jax_model(model), proof, to_jax(X), to_jax(Y)
 
 
 @pytest.mark.parametrize("where", [None, "fc", "relu"])
-def test_jax_verifier_on_port_chained_proof(proved, where):
-    jm, proof, X, Y = proved
-    jp = to_jax(proof)
+def test_jax_verifier_on_port_chained_proof(chained, where):
+    jm, X, Y = jax_model(chained.model), to_jax(chained.X), to_jax(chained.Y)
+    jp = to_jax(chained.proof)
     if where == "fc":
         polys = np.asarray(jp.fc_proofs[0].ip_polys).copy()
         polys[0, 1, 0] ^= 1

@@ -5,8 +5,10 @@
 Same configurations, weight init and metric as the JAX package's bench.py
 (prover seconds per data point, the reference's unit): the model is built
 (quantize, setup, commit), inference runs once untimed, then the proving
-loop (chained Fiat-Shamir) runs twice, warm-up then timed. Progress goes to
-stderr. BENCH_CONFIG:
+loop (chained Fiat-Shamir) runs twice, warm-up then timed; the timed proof
+is then serialized (proof_bytes) and checked by the port's verifier with
+Fiat-Shamir replay (verify_s, verify_ok). Progress and these secondary
+numbers go to stderr. BENCH_CONFIG:
   zkdl256 - 8-layer 18M-parameter MLP, batch 256 (the headline)
   zkdl1   - the same model, batch 1
   mid     - 4 layers, batch 32
@@ -23,10 +25,13 @@ import time
 import numpy as np
 import torch
 
+from . import native
 from .commit.pedersen import to_mont_rows
 from .curve import g1
 from .field import kernels
+from .io import proof_io
 from .models import mlp, quantize
+from .sumcheck.transcript import FiatShamir
 from .utils.runtime import resolve_device
 
 ZKDL_DIMS = [784, 1000, 1773, 1773, 1773, 1773, 1773, 1124, 1000]
@@ -64,11 +69,13 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def run(config: str = "zkdl256", device="cuda", split: bool = True) -> dict:
+def run(config: str = "zkdl256", device="cuda", split: bool = True, verify: bool = True) -> dict:
     """Build, infer and prove one configuration. Returns the model, inputs,
-    outputs, proof and timings (seconds); with split=True one more proving
-    run is made with a device synchronize after every layer, for the
-    per-layer fc/relu seconds."""
+    outputs, proof and timings (seconds). With verify=True the steady proof
+    is serialized and verified (host seconds, verdict, kernel launches of
+    the verify); an exception of the verifier propagates. With split=True
+    one more proving run is made with a device synchronize after every
+    layer, for the per-layer fc/relu seconds."""
     dev = resolve_device(device)
     dims, batch, baseline = CONFIGS[config]
     rng = np.random.default_rng(0)
@@ -99,6 +106,19 @@ def run(config: str = "zkdl256", device="cuda", split: bool = True) -> dict:
     log(f"steady-state spp={spp:.6f}; kernel launches per prove: {json.dumps(per_prove)}; "
         f"peak device memory {peak_gib} GiB")
 
+    checked = {}
+    if verify:
+        native.lib()  # built at its first use: outside the timed verify
+        checked["proof_bytes"] = len(proof_io.serialize(proof))
+        before = launch_counts()
+        t0 = time.perf_counter()
+        ok, msg = model.verify(proof, X=X, Y_hat=Y_hat, transcript=FiatShamir())
+        _sync(dev)
+        checked.update(verify_s=time.perf_counter() - t0, verify_ok=ok, verify_msg=msg,
+                       verify_launches={k: v - before[k] for k, v in launch_counts().items()})
+        log(f"proof {checked['proof_bytes']} bytes; host verify {checked['verify_s']:.3f}s ok={ok} {msg}; "
+            f"kernel launches in the verify: {json.dumps(checked['verify_launches'])}")
+
     layer_s = {}
     if split:
         marks = [time.perf_counter()]
@@ -119,7 +139,7 @@ def run(config: str = "zkdl256", device="cuda", split: bool = True) -> dict:
         "weights": weights, "X_np": X_np, "model": model, "X": X, "Y_hat": Y_hat,
         "proof": proof, "build_s": build_s, "infer_s": infer_s,
         "warm_prove_s": warm_spp * batch, "prove_s": spp * batch, "spp": spp,
-        "layer_s": layer_s, "launches_per_prove": per_prove, "prove_peak_gib": peak_gib,
+        "layer_s": layer_s, "launches_per_prove": per_prove, "prove_peak_gib": peak_gib, **checked,
     }
 
 

@@ -1,9 +1,10 @@
 """Pedersen multilinear commitment with split-and-fold opening, dlog fast path.
 
-Counterpart of the prover side of ``zkdl_tpu/commit/pedersen.py``:
-``Generators``, ``RowCommitments``, ``OpeningProof`` (:59-121), ``setup``
-(:134-143), ``commit`` with the dlog fast path (:157-171, :188-200) and
-``open_planar`` (:328-399).
+Counterpart of ``zkdl_tpu/commit/pedersen.py``: ``Generators``,
+``RowCommitments``, ``OpeningProof`` (:59-121), ``setup`` (:134-143),
+``commit`` with the dlog fast path (:157-171, :188-200), ``open_planar``
+(:328-399), and the host verifier ``verify_open`` (:421-464) and
+``verify_open_against_com`` (:803-826).
 
 The setup draws every generator's discrete log itself (a transparent
 stand-in for an SRS, as the reference's demo does), so all G1 tensor work
@@ -13,7 +14,12 @@ is the fixed-base comb (``curve/g1.py:generator_pow``, kernel K4).
 
 Reference quirk kept: the opening's cross-term exponents are the Montgomery
 REPRESENTATION bits of the scalars (the R-scaled group elements), exactly as
-the JAX package and its verifier expect.
+the JAX package and its verifier expect. The verifier tracks D_k = C_k^R:
+    check: temp_A_k == D_k
+    D_{k+1} = (1-u)^2 * temp0_k + u(1-u) * D_k + u^2 * temp1_k
+    base:  D_final == final_gen^(mont_repr(final_scalar)).
+Its scalar multiplications run in the native host library, a batch per call
+(``host_g1.scalar_mul_batch``).
 """
 
 from __future__ import annotations
@@ -23,10 +29,12 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..curve import g1
-from ..field import fr, mp, planar
+from ..curve import convert, g1, host_g1
+from ..field import fr, host, mp, planar
 from ..tensor import fr_ops
 from ..tensor import planar_ops as pops
+
+HF = host.fr
 
 
 @dataclasses.dataclass
@@ -178,3 +186,65 @@ def _open_planar_scalars(t, com_dlogs, gen_dlogs, u_row, u_in, gen_size):
     com_exp = planar.from_mont(com_sig[:, None])[:, 0]
     sig_arr = torch.stack(sigmas) if sigmas else torch.zeros((0, 8), dtype=torch.uint32, device=dev)
     return sig_arr, final_scalar, final_dlog_exp, com_exp
+
+
+# ---------------------------------------------------------------------------
+# verifier (host)
+# ---------------------------------------------------------------------------
+
+
+def _point(p: g1.G1Jac) -> host_g1.JacPoint:
+    """A ()-shaped point tensor -> its plain-int Jacobian point."""
+    return convert.jac_from_device(p)[0]
+
+
+def verify_open(proof: OpeningProof, u, expected_value: int | None = None) -> tuple[bool, str]:
+    """Verify the split-and-fold opening.
+
+    u: the full evaluation point as Montgomery ints (the list passed to the
+    opening). expected_value: optional claimed MLE value of t at u
+    (Montgomery int), checked against final_scalar. D_0 comes from the
+    proof's own com_at_u_row; verify_open_against_com binds it to the
+    commitment."""
+    rounds = [convert.jac_from_device(rp) for rp in proof.round_points]
+    u_in = list(u[: len(rounds)])
+    one = HF.one_mont
+    (D,) = host_g1.scalar_mul_batch([_point(proof.com_at_u_row)], [HF.r % fr.P_INT])  # C_0^R
+    for k, (tA, t0, t1) in enumerate(rounds):
+        if not host_g1.eq_points(tA, D):
+            return False, f"round {k}: temp != D_k"
+        uk = u_in[k]
+        c0 = HF.mul(HF.sub(one, uk), HF.sub(one, uk))  # (1-u)^2
+        cA = HF.mul(uk, HF.sub(one, uk))  # u(1-u)
+        c1 = HF.mul(uk, uk)  # u^2
+        # the exponents are the true integer values of the Montgomery products
+        a, b, c = host_g1.scalar_mul_batch([t0, D, t1], [HF.unmont(c0), HF.unmont(cA), HF.unmont(c1)])
+        D = host_g1.add(host_g1.add(a, b), c)
+    fs_mont_repr = fr.to_ints(mp.host(proof.final_scalar)[None])[0]  # raw bits
+    (fg,) = host_g1.scalar_mul_batch([_point(proof.final_gen)], [fs_mont_repr])
+    if not host_g1.eq_points(fg, D):
+        return False, "final: final_gen^final_scalar != D"
+    if expected_value is not None and fs_mont_repr != expected_value:
+        return False, "final scalar != expected MLE value"
+    return True, ""
+
+
+def verify_open_against_com(proof: OpeningProof, com: RowCommitments, u) -> tuple[bool, str]:
+    """Bind the opening to the row commitments: fold them on the host down
+    to com(u_row), P_{2i} + u*(P_{2i+1} - P_{2i}) per level (u_row = the
+    last log_m entries of u, an odd level padded with the identity), one
+    native batch of scalar multiplications a level, and compare with the
+    proof's com_at_u_row in affine form."""
+    m = com.points.x.shape[0]
+    log_m = fr_ops.ceil_log2(m)
+    u_row = list(u[len(u) - log_m :]) if log_m else []
+    pts = convert.jac_from_device(com.points)
+    for uk in u_row:
+        if len(pts) % 2:
+            pts.append(host_g1.IDENTITY)
+        diffs = [host_g1.add(pts[2 * i + 1], host_g1.neg(pts[2 * i])) for i in range(len(pts) // 2)]
+        steps = host_g1.scalar_mul_batch(diffs, [HF.unmont(uk)] * len(diffs))
+        pts = [host_g1.add(pts[2 * i], s) for i, s in enumerate(steps)]
+    if not host_g1.eq_points(_point(proof.com_at_u_row), pts[0]):
+        return False, "com(u_row) mismatch"
+    return True, ""

@@ -1,7 +1,10 @@
-"""Host (python-int) G1 oracle: trusted slow path for tests and the comb table.
+"""Host (python-int) G1 arithmetic: the comb table, the verifier, the oracle.
 
 Copy of ``zkdl_tpu/curve/host_g1.py`` (plain-int Jacobian arithmetic mod p,
-non-Montgomery), without the native C++ hook.
+non-Montgomery). ``scalar_mul`` stays pure Python (the tests' oracle); the
+verifier's batches go through ``scalar_mul_batch``, the native library of
+``native/`` (same double-and-add, same formulas), which raises rather than
+fall back when it cannot be built.
 """
 
 from __future__ import annotations
@@ -90,6 +93,13 @@ def scalar_mul(p: JacPoint, k: int) -> JacPoint:
         acc = double(acc)
         k >>= 1
     return out
+
+
+def scalar_mul_batch(points: list[JacPoint], scalars: list[int]) -> list[JacPoint]:
+    """[scalar_mul(p, k) for p, k in zip(points, scalars)] in one native call."""
+    from .. import native
+
+    return [JacPoint(*c) for c in native.g1_scalar_mul_batch([(p.x, p.y, p.z) for p in points], scalars)]
 
 
 def to_affine(p: JacPoint) -> tuple[int, int] | None:

@@ -1,8 +1,9 @@
-"""Quantized MLP: build, inference and the backwards proving loop.
+"""Quantized MLP: build, inference, the backwards proving loop, verification.
 
 Counterpart of ``zkdl_tpu/models/mlp.py``: ``absorb_statement`` (:38-49),
 ``MLP.from_float_weights``/``infer``/``prove`` (:57-163, planar path,
-chained by default), ``MLPProof`` and ``prove_timed`` (:378-388).
+chained by default), ``MLP.verify`` with its Fiat-Shamir replay (:165-355,
+the grouped schedule), ``MLPProof`` and ``prove_timed`` (:378-388).
 """
 
 from __future__ import annotations
@@ -14,7 +15,10 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from ..field import mp
+from ..sumcheck import protocols as sc
 from ..sumcheck.transcript import ChallengeSource, FiatShamir
+from ..tensor import fr_ops
 from ..utils.runtime import resolve_device
 from . import zkfc, zkrelu
 
@@ -29,6 +33,16 @@ def absorb_statement(challenges: ChallengeSource, layers, X, Y_hat) -> None:
         challenges.absorb_array(layer.com.points.z)
     challenges.absorb_array(X)
     challenges.absorb_array(Y_hat)
+
+
+def _cat_host(*vecs) -> np.ndarray:
+    """Host concatenation of challenge vectors (CPU or card tensors)."""
+    return np.concatenate([mp.host(v).reshape(-1, 8) for v in vecs], axis=0)
+
+
+def _same(a, b) -> bool:
+    """Host equality of two stored challenge vectors (None never matches)."""
+    return a is not None and b is not None and np.array_equal(mp.host(a), mp.host(b))
 
 
 def _sync(device: torch.device) -> None:
@@ -103,6 +117,136 @@ class MLP:
             if on_layer:
                 on_layer("fc", i)
         return MLPProof(fc_proofs, relu_proofs)
+
+    def verify(self, proof: "MLPProof", X=None, Y_hat=None, transcript: ChallengeSource | None = None,
+               interleaved: bool = False) -> tuple[bool, str]:
+        """Verify every layer proof and, for chained proofs, the cross-layer
+        claim chain; returns (ok, reason) with the JAX verifier's reasons.
+
+        Y_hat's MLE anchors fc[n-1]'s z-claim (public output); each
+        fc[i+1]'s X-side final is the initial claim of relu[i]'s
+        A = sign (.) mag sumcheck; relu[i]'s X(v_a) is fc[i]'s z-claim at
+        the shared point; fc[0]'s X-side final is checked against the public
+        input X's MLE. The two anchors evaluate MLEs on X's and Y_hat's
+        device (K2 on the card).
+
+        transcript: a FRESH ChallengeSource of the prover's mode (e.g.
+        FiatShamir()). The verifier then re-derives every challenge
+        (statement absorption, every draw, every absorbed message) and
+        rejects a proof whose stored challenges differ. Without it the
+        evaluation points are taken from the proof on trust.
+
+        The checks are the JAX package's; the binding of each opening to
+        its layer's row commitments (a G1 fold over every row, the one heavy
+        step) runs after every other check, so a tampered proof is rejected
+        before it. A proof with one fault gets the JAX verifier's reason.
+
+        Round-interleaved proofs (interleaved=True) and committed-aux ReLU
+        proofs (aux_coms set) are not ported (ROADMAP.md Queue A items 3 and
+        4): they raise NotImplementedError, never pass unchecked."""
+        if interleaved:
+            raise NotImplementedError("round-interleaved Fiat-Shamir is not ported (ROADMAP.md Queue A item 3)")
+        if any(p.aux_coms is not None for p in proof.relu_proofs):
+            raise NotImplementedError("committed-aux ReLU proofs are not ported (ROADMAP.md Queue A item 4)")
+        n = len(self.layers)
+        if transcript is not None:
+            if X is None or Y_hat is None:
+                return False, "transcript replay requires the public X and Y_hat"
+            ok, msg = self._verify_transcript(proof, X, Y_hat, transcript)
+            if not ok:
+                return False, f"transcript: {msg}"
+        for i in range(n):
+            ok, msg = zkfc.verify_claims(proof.fc_proofs[i])
+            if not ok:
+                return False, f"fc[{i}]: {msg}"
+        for i in range(n - 1):
+            ok, msg = zkrelu.verify(proof.relu_proofs[i])
+            if not ok:
+                return False, f"relu[{i}]: {msg}"
+        chained = n >= 2 and proof.relu_proofs[0].a_polys is not None
+        # The output anchor needs only the top FC's z-claim (chained or not);
+        # the input anchor rides the claim chain, so an unchained proof with
+        # X is rejected rather than left unanchored.
+        if Y_hat is not None:
+            top = proof.fc_proofs[n - 1]
+            pt = _cat_host(top.u_out, top.u_bs)
+            y_eval = fr_ops.me_eval(fr_ops.pad_to(Y_hat, 1 << pt.shape[0]), pt)
+            if sc.scalars_to_ints(y_eval) != sc.scalars_to_ints(top.z_claim):
+                return False, "fc[-1]: output claim != Y_hat MLE (public anchor)"
+        if X is not None and n >= 2 and not chained:
+            return False, "input anchor requires a chained proof"
+        if chained:
+            for i in range(n - 2, -1, -1):
+                rp, nxt, fcp = proof.relu_proofs[i], proof.fc_proofs[i + 1], proof.fc_proofs[i]
+                if not _same(rp.a_point, _cat_host(nxt.u_in, nxt.u_bs)):
+                    return False, f"relu[{i}]: chain point != fc[{i+1}]'s X point"
+                ok, msg = zkrelu.verify_chained(rp, sc.scalars_to_ints(nxt.ip_finals)[0])
+                if not ok:
+                    return False, f"relu[{i}]: {msg}"
+                if not _same(_cat_host(fcp.u_out, fcp.u_bs), rp.u_recover):
+                    return False, f"fc[{i}]: z point not chained to relu[{i}].v_a"
+                if sc.scalars_to_ints(fcp.z_claim) != sc.scalars_to_ints(rp.x_at_va):
+                    return False, f"fc[{i}]: z claim != relu[{i}].X(v_a)"
+            if X is not None:
+                bot = proof.fc_proofs[0]
+                pt = _cat_host(bot.u_in, bot.u_bs)
+                x_eval = fr_ops.me_eval(fr_ops.pad_to(X, 1 << pt.shape[0]), pt)
+                if sc.scalars_to_ints(x_eval) != [sc.scalars_to_ints(bot.ip_finals)[0]]:
+                    return False, "fc[0]: input claim != X MLE (public anchor)"
+        for i in range(n):
+            ok, msg = zkfc.verify_binding(self.layers[i].com, proof.fc_proofs[i])
+            if not ok:
+                return False, f"fc[{i}]: {msg}"
+        return True, ""
+
+    def _verify_transcript(self, proof: "MLPProof", X, Y_hat, transcript: ChallengeSource) -> tuple[bool, str]:
+        """Re-derive the challenge stream of prove() (the grouped schedule)
+        and compare it with the proof's stored vectors: the statement, then
+        the output layer's draws, then per layer (backwards) the ReLU's and
+        the FC's, absorbing each proof's messages where the prover did. In
+        chained mode fc[i<n-1] draws only u_in (its z-point is relu[i]'s
+        u_recover; verify checks that equality)."""
+
+        def draw_eq(stored) -> bool:
+            got = transcript.random_vec(stored.shape[0])
+            return np.array_equal(got.numpy(), mp.host(stored))
+
+        absorb_statement(transcript, self.layers, X, Y_hat)
+        n = len(self.layers)
+        chained = n >= 2 and proof.relu_proofs[0].a_polys is not None
+
+        def fc_replay(i: int, draw_all: bool) -> str | None:
+            p = proof.fc_proofs[i]
+            vecs = [("u_bs", p.u_bs), ("u_in", p.u_in), ("u_out", p.u_out)] if draw_all else [("u_in", p.u_in)]
+            for name, stored in vecs:
+                if not draw_eq(stored):
+                    return f"fc[{i}].{name} not derived from the transcript"
+            transcript.absorb_array(p.ip_polys)
+            transcript.absorb_array(p.z_claim)
+            return None
+
+        def relu_replay(i: int) -> str | None:
+            p = proof.relu_proofs[i]
+            vecs = [("u_z_bin", p.u_z_bin), ("v_z_bin", p.v_z_bin), ("u_r_bin", p.u_r_bin),
+                    ("v_r_bin", p.v_r_bin), ("u_recover", p.u_recover), ("u_hp", p.u_hp), ("v_hp", p.v_hp)]
+            for name, stored in vecs:
+                if not draw_eq(stored):
+                    return f"relu[{i}].{name} not derived from the transcript"
+            transcript.absorb_array(p.mag_polys)
+            transcript.absorb_array(p.rem_polys)
+            transcript.absorb_array(p.hp_polys)
+            if p.a_polys is not None:
+                transcript.absorb_array(p.a_polys)
+            return None
+
+        err = fc_replay(n - 1, draw_all=True)
+        if err:
+            return False, err
+        for i in range(n - 2, -1, -1):
+            err = relu_replay(i) or fc_replay(i, draw_all=not chained)
+            if err:
+                return False, err
+        return True, ""
 
 
 @dataclasses.dataclass

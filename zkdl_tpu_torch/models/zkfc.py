@@ -3,7 +3,8 @@
 Counterpart of ``zkdl_tpu/models/zkfc.py``: ``_signed_digits``,
 ``_combine_columns``, ``_lift_cols_to_mont``, ``field_matmul_fast``
 (:86-195), ``ZkFC`` (:202-233), ``ZkFCProof``, ``_fc_prep_planar``
-(:260-292) and ``prove_planar`` (non-interleaved, :354-372).
+(:260-292), ``prove_planar`` (non-interleaved, :354-372) and ``verify``
+(:375-397).
 
 Forward: every operand lies in (-2^47, 2^47) (the protocol's own bound), so
 Z = X @ W over Fr is computed exactly from 7-bit signed digits with two int8
@@ -21,6 +22,7 @@ import torch
 from ..commit import pedersen
 from ..field import mp, planar
 from ..sumcheck import planar_protocols as pp
+from ..sumcheck import protocols as sc
 from ..sumcheck.transcript import ChallengeSource
 from ..tensor import fr_ops
 from ..tensor import planar_ops as pops
@@ -208,3 +210,41 @@ def prove_planar(layer: ZkFC, X: torch.Tensor, Z: torch.Tensor, challenges: Chal
     challenges.absorb_array(ip_polys)
     challenges.absorb_array(z_claim)
     return proof
+
+
+def verify_claims(proof: ZkFCProof) -> tuple[bool, str]:
+    """The matmul sumcheck and the weight opening, on the proof alone. The
+    initial claim is the proof's Z(u_out||u_bs); the W-side final claim must
+    equal the opening's final scalar (the same MLE point)."""
+    u_in = sc.scalars_to_ints(proof.u_in)
+    claim = sc.scalars_to_ints(proof.z_claim)[0]
+    res = sc.inner_product_verify(sc.polys_to_ints(proof.ip_polys), u_in, claim)
+    if not res.ok:
+        return False, "ip: " + res.reason
+    fa, fb = sc.scalars_to_ints(proof.ip_finals)
+    if not sc.inner_product_check_final(res, fa, fb):
+        return False, "ip: final product mismatch"
+    u_w = sc.scalars_to_ints(proof.u_out) + u_in
+    ok, msg = pedersen.verify_open(proof.opening, u_w, expected_value=fb)
+    if not ok:
+        return False, "open: " + msg
+    return True, ""
+
+
+def verify_binding(layer_com: pedersen.RowCommitments, proof: ZkFCProof) -> tuple[bool, str]:
+    """The opening's com(u_row) against the layer's row commitments: the
+    verifier's one heavy step (a native G1 fold over every row)."""
+    u_w = sc.scalars_to_ints(proof.u_out) + sc.scalars_to_ints(proof.u_in)
+    ok, msg = pedersen.verify_open_against_com(proof.opening, layer_com, u_w)
+    if not ok:
+        return False, "open: " + msg
+    return True, ""
+
+
+def verify(layer_com: pedersen.RowCommitments, proof: ZkFCProof) -> tuple[bool, str]:
+    """Verify the matmul sumcheck, the weight opening and its binding to
+    the layer's row commitments (zkfc.py:verify)."""
+    ok, msg = verify_claims(proof)
+    if not ok:
+        return ok, msg
+    return verify_binding(layer_com, proof)

@@ -3,7 +3,8 @@
 Counterpart of ``zkdl_tpu/models/zkrelu.py``: the width constants (:43-46),
 ``_width_consts``/``_split_mag`` (:81-118), ``forward_compact`` (:153-180),
 ``ZkReluProof`` (:258-306), ``_layout_body``/``_claims_body`` (:352-394) and
-``prove_planar`` in grouped and chained modes (:419-507). Per element of the
+``prove_planar`` in grouped and chained modes (:419-507), and the host
+verifiers ``verify`` (:739-773) and ``verify_chained`` (:605-647). Per element of the
 pre-activation X (Montgomery Fr at scale 2^32), x = unmont(X) read as a
 signed 48-bit fixed-point value: positive iff x <= 2^47 - 1; mag is x or
 x + 2^47 (biased, negative); rem is a signed 16-bit remainder; the output is
@@ -19,14 +20,18 @@ import functools
 import numpy as np
 import torch
 
-from ..field import fr, mp, planar
+from ..field import fr, host, mp, planar
 from ..sumcheck import planar_protocols as pp
+from ..sumcheck import protocols as sc
 from ..sumcheck.transcript import ChallengeSource
 from ..tensor import fr_ops
 from ..tensor import planar_ops as pops
 
 LOG_Q, Q = 5, 32  # mag_rescaled bit width
 LOG_R, R = 4, 16  # remainder width (R-1 magnitude bits + sign)
+SCALE_OUT_BITS = 16  # requantization shift == R: mag_rescaled = (mag - rem) >> R
+
+HF = host.fr
 
 
 @functools.lru_cache(maxsize=None)
@@ -203,3 +208,57 @@ def prove_planar(X: torch.Tensor, aux: dict, challenges: ChallengeSource, chain_
     if a_polys is not None:
         challenges.absorb_array(a_polys)
     return proof
+
+
+def verify(proof: ZkReluProof) -> tuple[bool, str]:
+    """Both binary sumchecks, the Hadamard sumcheck against the claimed
+    product MLE, and their final claims (zkrelu.py:verify)."""
+    ints = sc.scalars_to_ints
+    res = sc.binary_verify(sc.polys_to_ints(proof.mag_polys), ints(proof.u_z_bin), ints(proof.v_z_bin),
+                           ints(proof.mag_final)[0])
+    if not res.ok:
+        return False, "mag_bin: " + res.reason
+    res = sc.binary_verify(sc.polys_to_ints(proof.rem_polys), ints(proof.u_r_bin), ints(proof.v_r_bin),
+                           ints(proof.rem_final)[0])
+    if not res.ok:
+        return False, "rem_bin: " + res.reason
+    fa, fb = ints(proof.hp_finals)
+    res = sc.hadamard_verify(sc.polys_to_ints(proof.hp_polys), ints(proof.u_hp), ints(proof.v_hp),
+                             ints(proof.hp_claim)[0], fa, fb)
+    if not res.ok:
+        return False, "hadamard: " + res.reason
+    return True, ""
+
+
+def verify_chained(proof: ZkReluProof, a_claim: int) -> tuple[bool, str]:
+    """Chained-mode checks (zkrelu.py:verify_chained): the A = sign (.) mag
+    product sumcheck against the downstream FC's A-claim (a_claim, its
+    ip_finals[0], Montgomery int), the bit recombinations against its
+    finals, and the ReLU recombination identity at the shared point v_a
+        X + 2^(Q+R-1) * (1 - sign) == 2^SCALE_OUT_BITS * mag + rem,
+        rem = sum_{k<R-1} 2^k b_k - 2^(R-1) b_(R-1).
+    (R here is the remainder width, not the Montgomery radix.)"""
+    if proof.a_polys is None:
+        return False, "proof is not chained"
+    ints = sc.scalars_to_ints
+    fa, fb = ints(proof.a_finals)  # mont(mag)(v_a), sign(v_a)
+    res = sc.hadamard_verify(sc.polys_to_ints(proof.a_polys), ints(proof.a_point), ints(proof.u_recover),
+                             a_claim, fa, fb)
+    if not res.ok:
+        return False, "a-product: " + res.reason
+    m_rec = 0
+    for k, b in enumerate(ints(proof.mag_bits_at_u)):
+        m_rec = HF.add(m_rec, HF.mul(HF.mont(1 << k), b))
+    if m_rec != fa:
+        return False, "mag bit recombination != mag(v_a)"
+    rem_claims = ints(proof.rem_bits_at_u)
+    r_rec = 0
+    for k in range(R - 1):
+        r_rec = HF.add(r_rec, HF.mul(HF.mont(1 << k), rem_claims[k]))
+    r_rec = HF.sub(r_rec, HF.mul(HF.mont(1 << (R - 1)), rem_claims[R - 1]))
+    x_va = ints(proof.x_at_va)[0]
+    lhs = HF.add(x_va, HF.mul(HF.mont(1 << (Q + R - 1)), HF.sub(HF.one_mont, fb)))
+    rhs = HF.add(HF.mul(HF.mont(1 << SCALE_OUT_BITS), fa), r_rec)
+    if lhs != rhs:
+        return False, "recombination identity failed at v_a"
+    return True, ""

@@ -1,8 +1,10 @@
-"""Shape helpers of ``zkdl_tpu/tensor/fr_ops.py`` used by the prover."""
+"""Shape helpers and the MLE evaluation of ``zkdl_tpu/tensor/fr_ops.py``."""
 
 from __future__ import annotations
 
 import torch
+
+from ..field import mp, planar
 
 
 def ceil_log2(n: int) -> int:
@@ -20,3 +22,35 @@ def pad_to(t: torch.Tensor, n: int) -> torch.Tensor:
         raise ValueError(f"pad_to: length {t.shape[0]} > {n}")
     pad = torch.zeros((n - t.shape[0], *t.shape[1:]), dtype=t.dtype, device=t.device)
     return torch.cat([t, pad], dim=0)
+
+
+def _me_step_planar(tp: torch.Tensor, x) -> torch.Tensor:
+    """One fold of planar (8, n): out[:, i] = t[:, 2i] + x*(t[:, 2i+1] - t[:, 2i]),
+    the odd tail zero-padded. The product by the host scalar x is K2."""
+    if tp.shape[1] % 2:
+        tp = torch.cat([tp, torch.zeros((8, 1), dtype=tp.dtype, device=tp.device)], dim=1)
+    a0, a1 = tp[:, 0::2], tp[:, 1::2]
+    return planar.add(a0, planar.mul_scalar(planar.sub(a1, a0), x))
+
+
+def me_step(t: torch.Tensor, x) -> torch.Tensor:
+    """One multilinear-extension fold of (n, 8) Montgomery t by the host
+    scalar x (8,): out[i] = t[2i] + x*(t[2i+1] - t[2i]), zero-padding an odd
+    tail (fr_ops.py:me_step). Returns ((n+1)//2, 8)."""
+    return planar.from_planar(_me_step_planar(planar.to_planar(t), mp.host(x))).contiguous()
+
+
+def me_eval(t: torch.Tensor, u) -> torch.Tensor:
+    """The MLE of (n, 8) Montgomery t at the point u ((r, 8) Montgomery
+    challenges, any device) -> (8,), on t's device (fr_ops.py:me_eval).
+
+    Folds along u[0] first, on t's natural row index (u[0] binds the lowest
+    index bit); requires 2^(r-1) < n <= 2^r."""
+    n, r = t.shape[0], u.shape[0]
+    if not (1 << r) // 2 < n <= (1 << r):
+        raise ValueError(f"me_eval: {n} rows for a {r}-variable point")
+    u = mp.host(u)
+    tp = planar.to_planar(t)
+    for i in range(r):
+        tp = _me_step_planar(tp, u[i])
+    return tp[:, 0].contiguous()
