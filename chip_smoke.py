@@ -25,25 +25,37 @@ Phases (each prints its own lines; any failure exits nonzero):
      card's proof accepted by the port's verifier on the card and, moved to
      the CPU through the proof file format, by the same verifier there
   4. zkdl256 (8 layers at full width, batch 256) through the port's bench
-     path: build, infer, warm and steady prove, the proof's size, the port's
+     path: build from PRNGKey(0), its generators, row commitments, X and
+     Y_hat against the SHA-256 digests of the JAX package's build
+     (tests/port/fixtures/zkdl256_jax_build.json), infer, warm and steady
+     prove, the proof's size, the port's
      verifier with Fiat-Shamir replay (every sumcheck, every opening and its
      binding to the row commitments, the chain, the ReLU recombination, the
      public anchors on X and Y_hat), per-layer split, launch count of every
      kernel (all > 0, K2 also within the verify), tampered copies of the
      proof and of Y_hat each rejected with its expected reason, Y_hat
      against a float64 forward
+  5. the demo at full width: gen_benchmark's 8-layer model and batch-256
+     input, then `demo --interleave --verify` (round-interleaved
+     Fiat-Shamir), its output against the float model's, kernel launches of
+     the run (all > 0), two tampered copies of the interleaved proof
+     rejected with the JAX verifier's reasons; then phase 4's model proved
+     grouped and interleaved, alternately, for the two schedules' spp
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import hashlib
 import io
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -60,6 +72,14 @@ FP_SQR_IMAD = 2 * 78 + 2 * 12 * 12 + 12  # a^2 needs the 78 wide products a_i a_
 FP_MULS_PER_WINDOW, FP_SQRS_PER_WINDOW = 7, 4  # add_mixed, generic case; squarings z1z1, hh, rr, zh2
 FP_LEVELS_PER_WINDOW = 5  # add_mixed's levels of dependent products (K4 runs each level's products side by side)
 Y_HAT_TOL = 1e-4  # zkdl256 Y_hat vs the float64 forward (see phase_zkdl256)
+JAX_BUILD = os.path.join("tests", "port", "fixtures", "zkdl256_jax_build.json")
+# Two faults of an interleaved proof (the low bit of one word flipped) and
+# the JAX verifier's reason for each, which tests/port/test_torch_interleaved.py
+# holds on the CPU (phase 5): (proof list, layer, field, word, reason)
+INTERLEAVED_FAULTS = [
+    ("fc_proofs", 0, "ip_polys", (1, 0, 2), "transcript: fc[0].u_in not derived round-interleaved"),
+    ("relu_proofs", 0, "x_at_va", (0,), "transcript: relu[0].v_hp not derived round-interleaved"),
+]
 
 
 def log(msg: str) -> None:
@@ -205,12 +225,16 @@ def comb_bound(scal) -> tuple[float, str]:
 
 
 def comb_timing_sets(dev) -> dict:
-    """K4's timed inputs: 2048 random scalars below r, drawn as setup draws
-    them (a commitment's shape), and the first 35 of them (an opening)."""
+    """K4's timed inputs: 2048 random scalars below r, with setup's
+    distribution (8 uniform words, the top one reduced mod P_TOP_LIMB) from
+    numpy seed 7, the set every earlier K4 time was taken on (a
+    commitment's shape), and the first 35 of them (an opening)."""
     import torch
-    from zkdl_tpu_torch.commit.pedersen import random_fr
+    from zkdl_tpu_torch.field import fr
 
-    sc = torch.from_numpy(random_fr(np.random.default_rng(7), 2048)).to(dev)
+    raw = np.random.default_rng(7).integers(0, 1 << 32, size=(2048, 8), dtype=np.uint32)
+    raw[:, 7] %= np.uint32(fr.P_TOP_LIMB)
+    sc = torch.from_numpy(raw).to(dev)
     return {"35 scalars (one opening)": sc[:35].contiguous(), "2048 scalars (setup, one layer's commitment)": sc}
 
 
@@ -368,6 +392,7 @@ def phase_small() -> None:
     from zkdl_tpu_torch.io import proof_io
     from zkdl_tpu_torch.models import mlp, quantize
     from zkdl_tpu_torch.sumcheck.transcript import FiatShamir, SeededRng
+    from zkdl_tpu_torch.utils import prng
 
     dims, batch = [64, 64, 64], 4
     weights = make_weights(dims, np.random.default_rng(3))
@@ -376,7 +401,7 @@ def phase_small() -> None:
                              ("FiatShamir, chained", FiatShamir, True)):
         flat, runs = {}, {}
         for device in ("cuda", "cpu"):
-            model = mlp.MLP.from_float_weights(weights, np.random.default_rng(5), device)
+            model = mlp.MLP.from_float_weights(weights, prng.PRNGKey(5), device)
             X = to_mont_rows(quantize.load_input(X_np, device))
             Y, Z, A, aux = model.infer(X)
             proof = model.prove(X, Y, Z, A, aux, mk(), chain=chain)
@@ -469,7 +494,36 @@ def float_forward(weights, X_np) -> np.ndarray:
     return a
 
 
-def phase_zkdl256(records: dict) -> None:
+def sha256(t) -> str:
+    from zkdl_tpu_torch.field import mp
+
+    return hashlib.sha256(np.ascontiguousarray(mp.host(t)).tobytes()).hexdigest()
+
+
+def check_jax_build(res: dict) -> None:
+    """zkdl256's generators (dlogs and points), row commitments (sigma and
+    points), X and Y_hat on the card against the digests of the JAX
+    package's build from the same weights and PRNGKey(0)."""
+    with open(JAX_BUILD) as f:
+        want = json.load(f)
+    got = {"layers": [], "X": sha256(res["X"]), "Y_hat": sha256(res["Y_hat"])}
+    for layer in res["model"].layers:
+        got["layers"].append({
+            "gen_dlogs": sha256(layer.gens.dlogs), "sigma": sha256(layer.com.dlogs),
+            "gen_points": {c: sha256(getattr(layer.gens.points, c)) for c in "xyz"},
+            "com_points": {c: sha256(getattr(layer.com.points, c)) for c in "xyz"},
+        })
+    bad = [k for k in ("X", "Y_hat") if got[k] != want[k]]
+    for i, (g, w) in enumerate(zip(got["layers"], want["layers"])):
+        bad += [f"layer {i} {k}" for k in g if g[k] != w[k]]
+    if len(got["layers"]) != len(want["layers"]) or bad:
+        raise AssertionError(f"zkdl256 build differs from the JAX package's ({JAX_BUILD}): {bad}")
+    log(f"[zkdl256] build equal to the JAX package's (jax {want['jax_version']}, PRNGKey(0)): generator dlogs "
+        f"and points, row-commitment sigma and points of all {len(want['layers'])} layers, X and Y_hat "
+        f"(SHA-256 digests in {JAX_BUILD})")
+
+
+def phase_zkdl256(records: dict) -> dict:
     import torch
     from zkdl_tpu_torch import bench
     from zkdl_tpu_torch.curve import g1
@@ -486,6 +540,7 @@ def phase_zkdl256(records: dict) -> None:
     log(f"[zkdl256] per-layer prove seconds: {json.dumps(res['layer_s'])}")
     log(f"[zkdl256] launches in this run (build, infer, 3 proves): {json.dumps(launches)}")
     log(f"[zkdl256] launches per prove: {json.dumps(res['launches_per_prove'])}")
+    check_jax_build(res)
     for name, count in launches.items():
         records.setdefault(name, {})["launches"] = count
         if count <= 0:
@@ -516,8 +571,114 @@ def phase_zkdl256(records: dict) -> None:
     records["_zkdl256"] = {k: res[k] for k in ("build_s", "infer_s", "warm_prove_s", "prove_s", "spp",
                                                "prove_peak_gib", "launches_per_prove", "layer_s",
                                                "proof_bytes", "verify_s", "verify_launches")}
+    return res
 
 
+# ---------------------------------------------------------------------------
+# phase 5
+# ---------------------------------------------------------------------------
+
+
+def dequantized_lines(path: str, scale_bits: int) -> np.ndarray:
+    """demo.out's raw Fr values (one a line, 64 hex digits) as signed fixed
+    point."""
+    from zkdl_tpu_torch.field import fr
+
+    vals = [int(line, 16) for line in open(path).read().split()]
+    return np.array([(v if v <= fr.P_INT // 2 else v - fr.P_INT) / (1 << scale_bits) for v in vals])
+
+
+def phase_demo(records: dict) -> None:
+    """The demo at full width with --interleave --verify: exit code 0,
+    "Verification: OK", every kernel launched, demo.out against the float
+    model's output."""
+    import torch
+    from zkdl_tpu_torch import bench, demo
+    from zkdl_tpu_torch.curve import g1
+    from zkdl_tpu_torch.field import kernels
+    from zkdl_tpu_torch.io import pt_loader
+    from zkdl_tpu_torch.models import gen_benchmark
+
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        model_path = gen_benchmark.generate(d)
+        log(f"[demo] gen_benchmark: dims {gen_benchmark.FULL_DIMS}, batch 256, in {time.perf_counter() - t0:.1f}s")
+        out_path = os.path.join(d, "demo.out")
+        argv = [model_path, os.path.join(d, "sample_input.pt"), "--interleave", "--verify", "--out", out_path]
+        for k in (*kernels.KERNELS, g1.COMB):
+            k.launches = 0
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            rc = demo.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = bench.launch_counts()
+        for line in printed.getvalue().splitlines():
+            log(f"[demo] {line}")
+        log(f"[demo] demo.main(model, input, --interleave, --verify): exit {rc} in {wall:.1f}s; kernel launches "
+            f"(build, infer, prove, verify): {json.dumps(launches)}")
+        if rc != 0 or "Verification: OK" not in printed.getvalue():
+            raise AssertionError(f"demo --interleave --verify failed (exit {rc})")
+        for name, count in launches.items():
+            if count <= 0:
+                raise AssertionError(f"kernel {name} was not launched by the demo")
+
+        # demo.out (scale 2^32) against the float32 model's own output: the
+        # same architecture and nn.Linear init range as phase 4, whose
+        # seeded quantization error is 9.9e-6; the float32 reference adds
+        # rounding of about 1e-7 of |y|. So the tolerance is phase 4's.
+        want = pt_loader.load_tensor(os.path.join(d, "sample_output.pt")).numpy().astype(np.float64)
+        got = dequantized_lines(out_path, 32).reshape(want.shape[0], -1)[:, : want.shape[1]]
+        err, y_max = float(np.abs(got - want).max()), float(np.abs(want).max())
+        log(f"[demo] demo.out dequantized vs sample_output.pt: max abs err {err:.3e} ({err / y_max:.2e} of "
+            f"|y| max {y_max:.3e}), tolerance {Y_HAT_TOL:g}")
+        if not np.isfinite(got).all() or err > Y_HAT_TOL:
+            raise AssertionError(f"demo.out disagrees with sample_output.pt: {err}")
+    records["_demo"] = {"wall_s": wall, "launches": launches, "out_max_abs_err": err}
+
+
+def phase_schedules(records: dict, res: dict, pairs: int = 5) -> None:
+    """Phase 4's zkdl256 model proved with the grouped and the
+    round-interleaved schedule alternately (steady spp of each, launches
+    of one interleaved prove); the last interleaved proof is verified and
+    two tampered copies are rejected with the JAX verifier's reasons."""
+    from zkdl_tpu_torch import bench
+    from zkdl_tpu_torch.models import mlp
+    from zkdl_tpu_torch.sumcheck.transcript import FiatShamir
+
+    model, X, Y = res["model"], res["X"], res["Y_hat"]
+    spp = {"grouped": [], "interleaved": []}
+    launches = proof = None
+    for _ in range(pairs):
+        for name in ("grouped", "interleaved"):
+            before = bench.launch_counts()
+            p, t = mlp.prove_timed(model, X, res["batch"], interleave=name == "interleaved")
+            spp[name].append(t)
+            if name == "interleaved":
+                launches = {k: v - before[k] for k, v in bench.launch_counts().items()}
+                proof = p
+    log(f"[schedules] zkdl256 steady spp, alternating in this call: grouped {spp['grouped']}, "
+        f"interleaved {spp['interleaved']} s/point; kernel launches of one interleaved prove: "
+        f"{json.dumps(launches)} (grouped: {json.dumps(res['launches_per_prove'])})")
+    t0 = time.perf_counter()
+    got = model.verify(proof, X=X, Y_hat=Y, transcript=FiatShamir(), interleaved=True)
+    verify_s = time.perf_counter() - t0
+    if got != (True, ""):
+        raise AssertionError(f"the port's verifier rejected the interleaved zkdl256 proof: {got}")
+    log(f"[schedules] interleaved proof accepted by MLP.verify(..., interleaved=True) in {verify_s:.3f}s")
+    for kind, i, field, idx, want in INTERLEAVED_FAULTS:
+        bad = copy.deepcopy(proof)
+        p = getattr(bad, kind)[i]
+        setattr(p, field, flipped(getattr(p, field), idx))
+        path = f"{kind}[{i}].{field}"
+        t0 = time.perf_counter()
+        got = model.verify(bad, X=X, Y_hat=Y, transcript=FiatShamir(), interleaved=True)
+        if got != (False, want):
+            raise AssertionError(f"tampered {path}: verifier returned {got}, expected (False, {want!r})")
+        log(f"[schedules] tampered {path}: rejected in {time.perf_counter() - t0:.3f}s: {want}")
+    records["_schedules"] = {"spp": spp, "interleaved_launches_per_prove": launches,
+                             "interleaved_verify_s": verify_s}
 # ---------------------------------------------------------------------------
 
 
@@ -543,8 +704,12 @@ def main() -> int:
     log(f"[time] phases 1-2: {time.perf_counter() - t0:.1f}s")
     phase_small()
     log(f"[time] phase 3: {time.perf_counter() - t0:.1f}s")
-    phase_zkdl256(records)
+    res = phase_zkdl256(records)
     log(f"[time] phase 4: {time.perf_counter() - t0:.1f}s")
+    phase_demo(records)
+    phase_schedules(records, res)
+    del res
+    log(f"[time] phase 5: {time.perf_counter() - t0:.1f}s")
     from zkdl_tpu_torch.curve import g1
     from zkdl_tpu_torch.field import kernels
 
@@ -556,7 +721,8 @@ def main() -> int:
                              "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                              "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     print(json.dumps({"kernels": kernels_line, "fr_dot_shapes": records["_fr_dot_shapes"],
-                      "g1_comb_shapes": records["_g1_comb_shapes"], "zkdl256": records["_zkdl256"]}), flush=True)
+                      "g1_comb_shapes": records["_g1_comb_shapes"], "zkdl256": records["_zkdl256"],
+                      "demo": records["_demo"], "schedules": records["_schedules"]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

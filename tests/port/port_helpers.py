@@ -7,7 +7,6 @@ from __future__ import annotations
 import dataclasses
 import pathlib
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
@@ -15,11 +14,11 @@ import torch
 from zkdl_tpu.commit import pedersen as jpedersen
 from zkdl_tpu.curve import g1 as jg1
 from zkdl_tpu.models import mlp as jmlp, zkfc as jzkfc, zkrelu as jzkrelu
-from zkdl_tpu.tensor import fr_ops as jfr_ops
 from zkdl_tpu_torch.commit import pedersen
 from zkdl_tpu_torch.curve import g1
 from zkdl_tpu_torch.field import fr
-from zkdl_tpu_torch.models import convert, quantize, zkfc
+from zkdl_tpu_torch.models import mlp, quantize
+from zkdl_tpu_torch.utils import prng
 
 GOLDEN = pathlib.Path(__file__).resolve().parents[1] / "fixtures" / "golden_config1.npz"
 
@@ -75,19 +74,11 @@ def jax_model(port_model) -> jmlp.MLP:
 
 def golden_model():
     """tests/test_golden_fixture.py's model on the CPU: 2 layers of width 64,
-    batch 1; returns (model, X). The generator dlogs come from the JAX
-    package's threefry draws (setup parity is a later slice); everything
-    else (quantization, commitments) is the port's."""
+    batch 1, generators from PRNGKey(0); returns (model, X). Built by the
+    port alone."""
     rng = np.random.default_rng(2024)
     dims = [64, 64, 64]
     weights = [(rng.standard_normal((dims[i], dims[i + 1])) * 0.4).astype(np.float32) for i in range(2)]
-    keys = jax.random.split(jax.random.PRNGKey(0), 2)
-    gen = zkfc.ZkFC.gen_size_for(64, 64)
-    layers = []
-    for i, w in enumerate(weights):
-        raw = torch.from_numpy(np.array(jfr_ops.random_fr(keys[i], gen)))
-        dlogs = pedersen.to_mont_rows(raw).numpy()
-        layers.append((quantize.load_weights(w, "cpu").numpy(), dlogs, 64, 64))
-    model = convert.mlp_from_arrays(layers, device="cpu")
+    model = mlp.MLP.from_float_weights(weights, prng.PRNGKey(0), device="cpu")
     X = pedersen.to_mont_rows(quantize.load_input(rng.standard_normal((1, 64)).astype(np.float32), "cpu"))
     return model, X

@@ -18,6 +18,7 @@ from zkdl_tpu_torch.commit import pedersen
 from zkdl_tpu_torch.field import fp, fr, host, mp
 from zkdl_tpu_torch.models import convert, mlp, quantize, zkfc, zkrelu
 from zkdl_tpu_torch.tensor import planar_ops as pops
+from zkdl_tpu_torch.utils import prng
 
 RNG = np.random.default_rng(70)
 W_FLOAT = (RNG.uniform(-1, 1, (8, 6)) / 3).astype(np.float32)  # padded to 8 x 8
@@ -57,7 +58,7 @@ def test_matmul_and_relu_forward_match_jax():
 
 
 def test_commit_rows_are_generator_powers_of_the_dlog_sums():
-    gens = pedersen.setup(np.random.default_rng(72), 4, "cpu")
+    gens = pedersen.setup(prng.PRNGKey(72), 4, "cpu")
     t = torch.from_numpy(rand_fr(73, 8))  # 2 rows of 4
     com = pedersen.commit(gens, t)
     HF = host.fr
@@ -79,7 +80,7 @@ def test_commit_rows_are_generator_powers_of_the_dlog_sums():
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
-        mlp.MLP.from_float_weights([W_FLOAT], np.random.default_rng(0))
+        mlp.MLP.from_float_weights([W_FLOAT], prng.PRNGKey(0))
     with pytest.raises(RuntimeError, match="cuda"):
         bench.run("micro")
     with pytest.raises(RuntimeError, match="cuda"):

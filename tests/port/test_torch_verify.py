@@ -2,8 +2,8 @@
 proofs: the 8-wide, 2-layer chained Fiat-Shamir proof of ``conftest.chained``
 with one value tampered in each place a proof or statement can be changed,
 verified with and without transcript replay; the layer verifiers; the
-unchained SeededRng proof; and the modes the port does not verify, which
-raise."""
+unchained SeededRng proof; and the committed-aux tier, which the port does
+not prove or verify: both raise."""
 
 import copy
 import dataclasses
@@ -14,6 +14,7 @@ import torch
 from port_helpers import jax_model, to_jax
 from zkdl_tpu.models import zkfc as jzkfc, zkrelu as jzkrelu
 from zkdl_tpu.sumcheck.transcript import FiatShamir as JaxFiatShamir
+from zkdl_tpu_torch import config
 from zkdl_tpu_torch.commit import pedersen
 from zkdl_tpu_torch.models import mlp, zkfc, zkrelu
 from zkdl_tpu_torch.sumcheck import protocols as sc
@@ -110,11 +111,17 @@ def test_unchained_proof_verdicts_equal_jax(chained):
 
 def test_unported_modes_raise(chained):
     c = chained
-    with pytest.raises(NotImplementedError, match="Queue A item 3"):
-        c.model.verify(c.proof, X=c.X, Y_hat=c.Y, transcript=FiatShamir(), interleaved=True)
     proof = copy.deepcopy(c.proof)
     proof.relu_proofs[0].aux_coms = object()
-    with pytest.raises(NotImplementedError, match="Queue A item 4"):
+    with pytest.raises(NotImplementedError, match="Queue A item 3"):
         c.model.verify(proof, X=c.X, Y_hat=c.Y, transcript=FiatShamir())
+    with pytest.raises(NotImplementedError, match="Queue A item 3"):
+        c.model.verify(proof, X=c.X, Y_hat=c.Y, transcript=FiatShamir(), interleaved=True)
     with pytest.raises(NotImplementedError):
         c.model.verify(proof, Y_hat=c.Y)
+
+def test_commit_aux_config_makes_prove_raise(chained, monkeypatch):
+    c = chained
+    monkeypatch.setattr(config, "_CONFIG", config.Config(commit_aux=True))
+    with pytest.raises(NotImplementedError, match="Queue A item 3"):
+        c.model.prove(c.X, c.Y, c.Z, c.A, c.aux, FiatShamir())

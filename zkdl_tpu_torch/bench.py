@@ -2,15 +2,16 @@
 
     python -m zkdl_tpu_torch.bench            # BENCH_CONFIG=zkdl256 (default)
 
-Same configurations, weight init and metric as the JAX package's bench.py
-(prover seconds per data point, the reference's unit): the model is built
-(quantize, setup, commit), inference runs once untimed, then the proving
-loop (chained Fiat-Shamir) runs twice, warm-up then timed; the timed proof
-is then serialized (proof_bytes) and checked by the port's verifier with
-Fiat-Shamir replay (verify_s, verify_ok). Progress and these secondary
-numbers go to stderr. BENCH_CONFIG:
-  zkdl256 - 8-layer 18M-parameter MLP, batch 256 (the headline)
-  zkdl1   - the same model, batch 1
+Same configurations, weight init, generator key (PRNGKey(0)) and metric as
+the JAX package's bench.py (prover seconds per data point, the reference's
+unit): the model is built (quantize, setup, commit), inference runs once
+untimed, then the proving loop (chained Fiat-Shamir) runs twice, warm-up
+then timed; the timed proof is then serialized (proof_bytes) and checked by
+the port's verifier with Fiat-Shamir replay (verify_s, verify_ok). Progress
+and these secondary numbers go to stderr. BENCH_CONFIG:
+  zkdl256             - 8-layer 18M-parameter MLP, batch 256 (the headline)
+  zkdl256_interleaved - the same, round-interleaved Fiat-Shamir
+  zkdl1               - the same model, batch 1
   mid     - 4 layers, batch 32
   micro   - 2 layers of width 64, batch 4
 """
@@ -32,16 +33,19 @@ from .field import kernels
 from .io import proof_io
 from .models import mlp, quantize
 from .sumcheck.transcript import FiatShamir
+from .utils import prng, profiling
 from .utils.runtime import resolve_device
 
 ZKDL_DIMS = [784, 1000, 1773, 1773, 1773, 1773, 1773, 1124, 1000]
 
-# (dims, batch, baseline s/point of the CUDA reference; proxies for mid/micro)
+# (dims, batch, baseline s/point of the CUDA reference (proxies for
+# mid/micro), round-interleaved Fiat-Shamir schedule)
 CONFIGS = {
-    "zkdl256": (ZKDL_DIMS, 256, 0.1),
-    "zkdl1": (ZKDL_DIMS, 1, 7.21),
-    "mid": ([128, 256, 256, 128], 32, 0.1),
-    "micro": ([64, 64, 64], 4, 0.1),
+    "zkdl256": (ZKDL_DIMS, 256, 0.1, False),
+    "zkdl256_interleaved": (ZKDL_DIMS, 256, 0.1, True),
+    "zkdl1": (ZKDL_DIMS, 1, 7.21, False),
+    "mid": ([128, 256, 256, 128], 32, 0.1, False),
+    "micro": ([64, 64, 64], 4, 0.1, False),
 }
 
 
@@ -71,36 +75,36 @@ def _sync(dev: torch.device) -> None:
 
 def run(config: str = "zkdl256", device="cuda", split: bool = True, verify: bool = True) -> dict:
     """Build, infer and prove one configuration. Returns the model, inputs,
-    outputs, proof and timings (seconds). With verify=True the steady proof
-    is serialized and verified (host seconds, verdict, kernel launches of
-    the verify); an exception of the verifier propagates. With split=True
-    one more proving run is made with a device synchronize after every
-    layer, for the per-layer fc/relu seconds."""
+    outputs, proof and timings (seconds), and the configuration's
+    Fiat-Shamir schedule (interleave), which it proves and verifies. With
+    verify=True the steady proof is serialized and verified (host seconds,
+    verdict, kernel launches of the verify); an exception of the verifier
+    propagates. With split=True one more proving run is made with a device
+    synchronize after every layer, for the per-layer fc/relu seconds."""
     dev = resolve_device(device)
-    dims, batch, baseline = CONFIGS[config]
+    dims, batch, baseline, interleave = CONFIGS[config]
+    timer = profiling.PhaseTimer(dev)
     rng = np.random.default_rng(0)
     weights = make_weights(dims, rng)
-    t0 = time.perf_counter()
-    model = mlp.MLP.from_float_weights(weights, np.random.default_rng(0), dev)
-    _sync(dev)
-    build_s = time.perf_counter() - t0
+    with timer.phase("build"):
+        model = mlp.MLP.from_float_weights(weights, prng.PRNGKey(0), dev)
+    build_s = timer.totals["build"]
     log(f"model built ({model.n_params} params): {build_s:.3f}s")
     X_np = rng.standard_normal((batch, dims[0])).astype(np.float32)
     X = to_mont_rows(quantize.load_input(X_np, dev))
 
-    t0 = time.perf_counter()
-    Y_hat, Z_list, A_list, aux_list = model.infer(X)
-    _sync(dev)
-    infer_s = time.perf_counter() - t0
+    with timer.phase("infer"):
+        Y_hat, Z_list, A_list, aux_list = model.infer(X)
+    infer_s = timer.totals["infer"]
     log(f"infer: {infer_s:.3f}s")
 
-    t0 = time.perf_counter()
-    proof, warm_spp = mlp.prove_timed(model, X, batch)
-    log(f"warmup done: {time.perf_counter() - t0:.3f}s, spp={warm_spp:.6f}")
+    with timer.phase("warm-up infer + prove"):
+        proof, warm_spp = mlp.prove_timed(model, X, batch, interleave=interleave)
+    log(f"warmup done: {timer.totals['warm-up infer + prove']:.3f}s, spp={warm_spp:.6f}")
     before = launch_counts()
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    proof, spp = mlp.prove_timed(model, X, batch)
+    proof, spp = mlp.prove_timed(model, X, batch, interleave=interleave)
     per_prove = {k: v - before[k] for k, v in launch_counts().items()}
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else None
     log(f"steady-state spp={spp:.6f}; kernel launches per prove: {json.dumps(per_prove)}; "
@@ -111,10 +115,9 @@ def run(config: str = "zkdl256", device="cuda", split: bool = True, verify: bool
         native.lib()  # built at its first use: outside the timed verify
         checked["proof_bytes"] = len(proof_io.serialize(proof))
         before = launch_counts()
-        t0 = time.perf_counter()
-        ok, msg = model.verify(proof, X=X, Y_hat=Y_hat, transcript=FiatShamir())
-        _sync(dev)
-        checked.update(verify_s=time.perf_counter() - t0, verify_ok=ok, verify_msg=msg,
+        with timer.phase("verify"):
+            ok, msg = model.verify(proof, X=X, Y_hat=Y_hat, transcript=FiatShamir(), interleaved=interleave)
+        checked.update(verify_s=timer.totals["verify"], verify_ok=ok, verify_msg=msg,
                        verify_launches={k: v - before[k] for k, v in launch_counts().items()})
         log(f"proof {checked['proof_bytes']} bytes; host verify {checked['verify_s']:.3f}s ok={ok} {msg}; "
             f"kernel launches in the verify: {json.dumps(checked['verify_launches'])}")
@@ -132,10 +135,11 @@ def run(config: str = "zkdl256", device="cuda", split: bool = True, verify: bool
         Y2, Z2, A2, aux2 = model.infer(X)
         _sync(dev)
         marks[0] = time.perf_counter()
-        model.prove(X, Y2, Z2, A2, aux2, on_layer=on_layer)
+        model.prove(X, Y2, Z2, A2, aux2, on_layer=on_layer, interleave=interleave)
         log("per-layer prove seconds: " + json.dumps(layer_s))
+    log("phases:\n" + timer.report())
     return {
-        "config": config, "dims": dims, "batch": batch, "baseline_spp": baseline,
+        "config": config, "dims": dims, "batch": batch, "baseline_spp": baseline, "interleave": interleave,
         "weights": weights, "X_np": X_np, "model": model, "X": X, "Y_hat": Y_hat,
         "proof": proof, "build_s": build_s, "infer_s": infer_s,
         "warm_prove_s": warm_spp * batch, "prove_s": spp * batch, "spp": spp,

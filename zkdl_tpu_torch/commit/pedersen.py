@@ -2,8 +2,8 @@
 
 Counterpart of ``zkdl_tpu/commit/pedersen.py``: ``Generators``,
 ``RowCommitments``, ``OpeningProof`` (:59-121), ``setup`` (:134-143),
-``commit`` with the dlog fast path (:157-171, :188-200), ``open_planar``
-(:328-399), and the host verifier ``verify_open`` (:421-464) and
+``aux_generators`` (:146-155), ``commit`` with the dlog fast path (:157-171,
+:188-200), ``open_planar`` (:328-399), and the host verifier ``verify_open`` (:421-464) and
 ``verify_open_against_com`` (:803-826).
 
 The setup draws every generator's discrete log itself (a transparent
@@ -33,6 +33,7 @@ from ..curve import convert, g1, host_g1
 from ..field import fr, host, mp, planar
 from ..tensor import fr_ops
 from ..tensor import planar_ops as pops
+from ..utils import prng
 
 HF = host.fr
 
@@ -69,15 +70,6 @@ class OpeningProof:
     final_scalar: torch.Tensor  # (8,) mont
 
 
-def random_fr(rng: np.random.Generator, n: int) -> np.ndarray:
-    """(n, 8) uint32 raw Fr values with the distribution of
-    zkdl_tpu/tensor/fr_ops.py:random_fr: 8 uniform u32 limbs, the top one
-    reduced mod P_TOP_LIMB."""
-    bits = rng.integers(0, 1 << 32, size=(n, 8), dtype=np.uint32)
-    bits[:, 7] %= np.uint32(fr.P_TOP_LIMB)
-    return bits
-
-
 def to_mont_rows(t: torch.Tensor) -> torch.Tensor:
     """(n, 8) raw -> (n, 8) Montgomery (through the planar kernels)."""
     return planar.from_planar(planar.to_mont(planar.to_planar(t))).contiguous()
@@ -93,12 +85,21 @@ def generators_from_dlogs(dlogs_mont: torch.Tensor) -> Generators:
     return Generators(points=points, dlogs=dlogs_mont, glv_safe=True)
 
 
-def setup(rng: np.random.Generator, gen_size: int, device) -> Generators:
-    """Generator vector r_i * G for random raw r_i drawn from `rng`; the
-    dlogs are stored as mont(r_i) for Fr math (pedersen.py:setup)."""
-    scalars = torch.from_numpy(random_fr(rng, gen_size)).to(device)
+def setup(key: np.ndarray, gen_size: int, device) -> Generators:
+    """Generator vector r_i * G for the raw r_i that random_fr draws from
+    `key` (a prng key, as ``jax.random.PRNGKey`` gives); the dlogs are
+    stored as mont(r_i) for Fr math (pedersen.py:setup)."""
+    scalars = fr_ops.random_fr(key, gen_size, device)
     points = g1.generator_pow(scalars)
     return Generators(points=points, dlogs=to_mont_rows(scalars), glv_safe=True)
+
+
+def aux_generators(size: int, device) -> Generators:
+    """The shared generator vector of the auxiliary-witness commitments
+    (pedersen.py:aux_generators): the fixed key PRNGKey(0x5A6B) folded with
+    the size, so prover and verifier regenerate the same vector. The
+    committed-aux tier (ROADMAP.md Queue A item 3) will call it."""
+    return setup(prng.fold_in(prng.PRNGKey(0x5A6B), size), size, device)
 
 
 def commit(gens: Generators, t: torch.Tensor) -> RowCommitments:

@@ -2,8 +2,9 @@
 
 Counterpart of ``zkdl_tpu/models/mlp.py``: ``absorb_statement`` (:38-49),
 ``MLP.from_float_weights``/``infer``/``prove`` (:57-163, planar path,
-chained by default), ``MLP.verify`` with its Fiat-Shamir replay (:165-355,
-the grouped schedule), ``MLPProof`` and ``prove_timed`` (:378-388).
+chained by default, grouped or round-interleaved Fiat-Shamir), ``MLP.verify``
+with its Fiat-Shamir replay of either schedule (:165-355), ``MLPProof`` and
+``prove_timed`` (:378-388).
 """
 
 from __future__ import annotations
@@ -15,12 +16,19 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from .. import config
 from ..field import mp
 from ..sumcheck import protocols as sc
 from ..sumcheck.transcript import ChallengeSource, FiatShamir
 from ..tensor import fr_ops
+from ..utils import prng
 from ..utils.runtime import resolve_device
 from . import zkfc, zkrelu
+
+
+# The committed-aux tier is not ported: a prove or verify that asks for it
+# raises with this message.
+COMMIT_AUX_NOT_PORTED = "the committed-aux soundness tier is not ported (ROADMAP.md Queue A item 3)"
 
 
 def absorb_statement(challenges: ChallengeSource, layers, X, Y_hat) -> None:
@@ -55,14 +63,17 @@ class MLP:
     layers: list[zkfc.ZkFC]
 
     @classmethod
-    def from_float_weights(cls, weights: Sequence[np.ndarray], rng: np.random.Generator,
+    def from_float_weights(cls, weights: Sequence[np.ndarray], key: np.ndarray,
                            device="cuda") -> "MLP":
-        """weights: float (in, out) matrices; each layer's generators are
-        drawn from `rng` in order. Sizes must chain."""
+        """weights: float (in, out) matrices; key: a prng key (as
+        ``prng.PRNGKey`` gives), split into one key per layer for its
+        generators, as the JAX package splits a jax.random key. Sizes must
+        chain."""
         dev = resolve_device(device)
         layers = []
+        keys = prng.split(key, len(weights))
         for i, w in enumerate(weights):
-            layers.append(zkfc.ZkFC.from_float(w, rng, dev))
+            layers.append(zkfc.ZkFC.from_float(w, keys[i], dev))
             if i > 0 and layers[i - 1].out_size != layers[i].in_size:
                 raise ValueError("Incompatible layer sizes")
         return cls(layers)
@@ -84,12 +95,24 @@ class MLP:
         return self.layers[-1](A), Z_list, A_list, aux_list
 
     def prove(self, X, Y_hat, Z_list, A_list, aux_list, challenges: ChallengeSource | None = None,
-              chain: bool = True, on_layer: Callable[[str, int], None] | None = None) -> "MLPProof":
+              chain: bool = True, on_layer: Callable[[str, int], None] | None = None,
+              interleave: bool = False) -> "MLPProof":
         """Backwards proving loop: output FC first, then (relu_i, fc_i) down to
         layer 0. chain=True links every FC's output claim to the adjacent
         ReLU's sumchecks (GKR-style); chain=False gives independent per-layer
         proofs. on_layer(kind, i) is called after each layer proof (kind
-        "fc" or "relu"), e.g. to time the layers."""
+        "fc" or "relu"), e.g. to time the layers.
+
+        interleave=True uses the round-interleaved Fiat-Shamir schedule: each
+        sumcheck round polynomial is absorbed before its fold challenge is
+        drawn (one host round trip per round). Verify with
+        MLP.verify(transcript=..., interleaved=True).
+
+        The committed-aux tier is not ported (ROADMAP.md Queue A item 3):
+        while config's commit_aux is set (ZKDL_COMMIT_AUX), prove raises
+        NotImplementedError."""
+        if config.get().commit_aux:
+            raise NotImplementedError(COMMIT_AUX_NOT_PORTED)
         if challenges is None:
             challenges = FiatShamir()
         absorb_statement(challenges, self.layers, X, Y_hat)
@@ -97,23 +120,25 @@ class MLP:
         fc_proofs: list = [None] * n
         relu_proofs: list = [None] * (n - 1)
         fc_proofs[n - 1] = zkfc.prove_planar(self.layers[n - 1], A_list[n - 2] if n >= 2 else X,
-                                             Y_hat, challenges)
+                                             Y_hat, challenges, interleave=interleave)
         if on_layer:
             on_layer("fc", n - 1)
         for i in range(n - 2, -1, -1):
             A_prev = A_list[i - 1] if i > 0 else X
             if chain:
                 w = torch.cat([fc_proofs[i + 1].u_in, fc_proofs[i + 1].u_bs], dim=0)
-                relu_proofs[i] = zkrelu.prove_planar(Z_list[i], aux_list[i], challenges, chain_point=w)
+                relu_proofs[i] = zkrelu.prove_planar(Z_list[i], aux_list[i], challenges, chain_point=w,
+                                                     interleave=interleave)
                 if on_layer:
                     on_layer("relu", i)
                 fc_proofs[i] = zkfc.prove_planar(self.layers[i], A_prev, Z_list[i], challenges,
-                                                 z_point=relu_proofs[i].u_recover)
+                                                 z_point=relu_proofs[i].u_recover, interleave=interleave)
             else:
-                relu_proofs[i] = zkrelu.prove_planar(Z_list[i], aux_list[i], challenges)
+                relu_proofs[i] = zkrelu.prove_planar(Z_list[i], aux_list[i], challenges, interleave=interleave)
                 if on_layer:
                     on_layer("relu", i)
-                fc_proofs[i] = zkfc.prove_planar(self.layers[i], A_prev, Z_list[i], challenges)
+                fc_proofs[i] = zkfc.prove_planar(self.layers[i], A_prev, Z_list[i], challenges,
+                                                 interleave=interleave)
             if on_layer:
                 on_layer("fc", i)
         return MLPProof(fc_proofs, relu_proofs)
@@ -134,25 +159,24 @@ class MLP:
         FiatShamir()). The verifier then re-derives every challenge
         (statement absorption, every draw, every absorbed message) and
         rejects a proof whose stored challenges differ. Without it the
-        evaluation points are taken from the proof on trust.
+        evaluation points are taken from the proof on trust. interleaved=True
+        replays the round-interleaved schedule (MLP.prove(interleave=True)).
 
         The checks are the JAX package's; the binding of each opening to
         its layer's row commitments (a G1 fold over every row, the one heavy
         step) runs after every other check, so a tampered proof is rejected
         before it. A proof with one fault gets the JAX verifier's reason.
 
-        Round-interleaved proofs (interleaved=True) and committed-aux ReLU
-        proofs (aux_coms set) are not ported (ROADMAP.md Queue A items 3 and
-        4): they raise NotImplementedError, never pass unchecked."""
-        if interleaved:
-            raise NotImplementedError("round-interleaved Fiat-Shamir is not ported (ROADMAP.md Queue A item 3)")
+        Committed-aux ReLU proofs (aux_coms set) are not ported (ROADMAP.md
+        Queue A item 3): they raise NotImplementedError, never pass
+        unchecked."""
         if any(p.aux_coms is not None for p in proof.relu_proofs):
-            raise NotImplementedError("committed-aux ReLU proofs are not ported (ROADMAP.md Queue A item 4)")
+            raise NotImplementedError(COMMIT_AUX_NOT_PORTED)
         n = len(self.layers)
         if transcript is not None:
             if X is None or Y_hat is None:
                 return False, "transcript replay requires the public X and Y_hat"
-            ok, msg = self._verify_transcript(proof, X, Y_hat, transcript)
+            ok, msg = self._verify_transcript(proof, X, Y_hat, transcript, interleaved)
             if not ok:
                 return False, f"transcript: {msg}"
         for i in range(n):
@@ -199,21 +223,67 @@ class MLP:
                 return False, f"fc[{i}]: {msg}"
         return True, ""
 
-    def _verify_transcript(self, proof: "MLPProof", X, Y_hat, transcript: ChallengeSource) -> tuple[bool, str]:
-        """Re-derive the challenge stream of prove() (the grouped schedule)
-        and compare it with the proof's stored vectors: the statement, then
-        the output layer's draws, then per layer (backwards) the ReLU's and
-        the FC's, absorbing each proof's messages where the prover did. In
-        chained mode fc[i<n-1] draws only u_in (its z-point is relu[i]'s
-        u_recover; verify checks that equality)."""
+    def _verify_transcript(self, proof: "MLPProof", X, Y_hat, transcript: ChallengeSource,
+                           interleaved: bool = False) -> tuple[bool, str]:
+        """Re-derive the challenge stream of prove() and compare it with the
+        proof's stored vectors: the statement, then the output layer's
+        draws, then per layer (backwards) the ReLU's and the FC's, absorbing
+        each proof's messages where the prover did. In chained mode
+        fc[i<n-1] draws only u_in (its z-point is relu[i]'s u_recover;
+        verify checks that equality).
+
+        interleaved=True replays the round-interleaved schedule: every fold
+        challenge is re-derived after absorbing its round's polynomial, so a
+        prover that chose a round polynomial after seeing its fold challenge
+        is caught."""
 
         def draw_eq(stored) -> bool:
             got = transcript.random_vec(stored.shape[0])
             return np.array_equal(got.numpy(), mp.host(stored))
 
+        def rounds_eq(polys, stored) -> bool:
+            """Interleaved replay: absorb poly i, re-derive fold challenge i."""
+            sp = mp.host(stored)
+            for i in range(sp.shape[0]):
+                transcript.absorb_array(polys[i])
+                if not np.array_equal(transcript.random_vec(1).numpy()[0], sp[i]):
+                    return False
+            return True
+
         absorb_statement(transcript, self.layers, X, Y_hat)
         n = len(self.layers)
         chained = n >= 2 and proof.relu_proofs[0].a_polys is not None
+
+        def fc_replay_interleaved(i: int, draw_all: bool) -> str | None:
+            p = proof.fc_proofs[i]
+            if draw_all:
+                for name, stored in (("u_bs", p.u_bs), ("u_out", p.u_out)):
+                    if not draw_eq(stored):
+                        return f"fc[{i}].{name} not derived from the transcript"
+            transcript.absorb_array(p.z_claim)
+            if not rounds_eq(p.ip_polys, p.u_in):
+                return f"fc[{i}].u_in not derived round-interleaved"
+            return None
+
+        def relu_replay_interleaved(i: int) -> str | None:
+            p = proof.relu_proofs[i]
+            steps = [("u_z_bin", None), ("v_z_bin", p.mag_polys), ("u_r_bin", None), ("v_r_bin", p.rem_polys),
+                     ("u_recover", p.a_polys), ("u_hp", None)]
+            for name, polys in steps:
+                stored = getattr(p, name)
+                if polys is None and not draw_eq(stored):
+                    return f"relu[{i}].{name} not derived from the transcript"
+                if polys is not None and not rounds_eq(polys, stored):
+                    return f"relu[{i}].{name} not derived round-interleaved"
+            transcript.absorb_array(p.mag_bits_at_u)
+            transcript.absorb_array(p.rem_bits_at_u)
+            transcript.absorb_array(p.hp_claim)
+            if p.x_at_va is None:
+                return f"relu[{i}]: interleaved proof missing x_at_va"
+            transcript.absorb_array(p.x_at_va)
+            if not rounds_eq(p.hp_polys, p.v_hp):
+                return f"relu[{i}].v_hp not derived round-interleaved"
+            return None
 
         def fc_replay(i: int, draw_all: bool) -> str | None:
             p = proof.fc_proofs[i]
@@ -239,6 +309,8 @@ class MLP:
                 transcript.absorb_array(p.a_polys)
             return None
 
+        if interleaved:
+            fc_replay, relu_replay = fc_replay_interleaved, relu_replay_interleaved
         err = fc_replay(n - 1, draw_all=True)
         if err:
             return False, err

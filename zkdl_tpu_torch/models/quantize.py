@@ -11,10 +11,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import config
 from ..field import fr, mp, planar
 from ..tensor import fr_ops
 
-SCALE_BITS = 16
+SCALE_BITS = config.get().scale_bits  # 16 unless ZKDL_SCALE_BITS sets another
 SCALE = 1 << SCALE_BITS
 
 
@@ -39,16 +40,23 @@ def pad_pow2_2d(x: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.pad(x, (0, cp - c, 0, rp - r))
 
 
+def _float32(x, device) -> torch.Tensor:
+    """A float array or tensor (any device) as a float32 tensor on device."""
+    if not isinstance(x, torch.Tensor):
+        x = np.asarray(x, dtype=np.float32)
+    return torch.as_tensor(x, device=device).to(torch.float32)
+
+
 def load_weights(w, device) -> torch.Tensor:
     """Float weight matrix (in, out) -> padded Montgomery Fr (in_p*out_p, 8)."""
-    w = pad_pow2_2d(torch.as_tensor(np.asarray(w, dtype=np.float32), device=device))
+    w = pad_pow2_2d(_float32(w, device))
     q = float_to_fr(w).reshape(8, -1)
     return planar.from_planar(planar.to_mont(q)).contiguous()
 
 
 def load_input(x, device) -> torch.Tensor:
     """Float input batch (batch, dim) -> padded NON-Montgomery Fr (n, 8)."""
-    x = pad_pow2_2d(torch.as_tensor(np.asarray(x, dtype=np.float32), device=device))
+    x = pad_pow2_2d(_float32(x, device))
     return planar.from_planar(float_to_fr(x).reshape(8, -1)).contiguous()
 
 

@@ -3,8 +3,8 @@
 Counterpart of ``zkdl_tpu/models/zkfc.py``: ``_signed_digits``,
 ``_combine_columns``, ``_lift_cols_to_mont``, ``field_matmul_fast``
 (:86-195), ``ZkFC`` (:202-233), ``ZkFCProof``, ``_fc_prep_planar``
-(:260-292), ``prove_planar`` (non-interleaved, :354-372) and ``verify``
-(:375-397).
+(:260-292), ``prove_planar`` (grouped and round-interleaved, :313-372) and
+``verify`` (:375-397).
 
 Forward: every operand lies in (-2^47, 2^47) (the protocol's own bound), so
 Z = X @ W over Fr is computed exactly from 7-bit signed digits with two int8
@@ -136,14 +136,15 @@ class ZkFC:
         return 1 << ((fr_ops.ceil_log2(in_size * out_size) + 1) // 2)
 
     @classmethod
-    def from_float(cls, w: np.ndarray, rng: np.random.Generator, device) -> "ZkFC":
-        """w: float (in, out) unpadded. Quantizes, pads, commits."""
+    def from_float(cls, w: np.ndarray, key: np.ndarray, device) -> "ZkFC":
+        """w: float (in, out) unpadded. Quantizes, pads, commits; the
+        generators are drawn from the prng key `key`."""
         from . import quantize
 
         weights = quantize.load_weights(w, device)
         in_p = 1 << fr_ops.ceil_log2(w.shape[0])
         out_p = 1 << fr_ops.ceil_log2(w.shape[1])
-        gens = pedersen.setup(rng, cls.gen_size_for(in_p, out_p), device)
+        gens = pedersen.setup(key, cls.gen_size_for(in_p, out_p), device)
         return cls(in_p, out_p, weights, gens, pedersen.commit(gens, weights))
 
     def __call__(self, X: torch.Tensor) -> torch.Tensor:
@@ -184,31 +185,46 @@ def _fc_prep_planar(X, W, Z, u_bs, u_out, in_size, out_size):
 
 
 def prove_planar(layer: ZkFC, X: torch.Tensor, Z: torch.Tensor, challenges: ChallengeSource,
-                 z_point=None) -> ZkFCProof:
+                 z_point=None, interleave: bool = False) -> ZkFCProof:
     """Matmul sumcheck + weight opening. Challenge order (u_bs, u_in, u_out).
 
     Chained mode: z_point (host (log_out + log_batch, 8)) fixes
-    (u_out || u_bs) to the adjacent ReLU's shared point; only u_in is drawn."""
+    (u_out || u_bs) to the adjacent ReLU's shared point; only u_in is drawn.
+
+    interleave=True: the round-interleaved schedule. u_bs and u_out (the
+    statement's evaluation point) are drawn first, the claim Z(u_out||u_bs)
+    is absorbed, then the inner-product sumcheck absorbs each round's
+    polynomial before drawing that round's fold challenge: u_in is an
+    output of the transcript."""
     batch = X.shape[0] // layer.in_size
     lo = fr_ops.ceil_log2(layer.out_size)
+    log_in = fr_ops.ceil_log2(layer.in_size)
+    u_in = None
     if z_point is None:
         u_bs = challenges.random_vec(fr_ops.ceil_log2(batch))
-        u_in = challenges.random_vec(fr_ops.ceil_log2(layer.in_size))
+        if not interleave:
+            u_in = challenges.random_vec(log_in)
         u_out = challenges.random_vec(lo)
     else:
         if z_point.shape[0] != lo + fr_ops.ceil_log2(batch):
             raise ValueError(f"z_point {tuple(z_point.shape)} vs out bits {lo}, batch {batch}")
         u_out, u_bs = z_point[:lo], z_point[lo:]
-        u_in = challenges.random_vec(fr_ops.ceil_log2(layer.in_size))
+        if not interleave:
+            u_in = challenges.random_vec(log_in)
     X_folded, W_folded, z_claim = _fc_prep_planar(
         X, layer.weights, Z, u_bs.numpy(), u_out.numpy(), layer.in_size, layer.out_size
     )
-    ip_polys, ip_finals = pp.inner_product_prove(X_folded, W_folded, u_in)
+    if interleave:
+        challenges.absorb_array(z_claim)
+        ip_polys, ip_finals, u_in = pp.inner_product_prove_interleaved(X_folded, W_folded, challenges)
+    else:
+        ip_polys, ip_finals = pp.inner_product_prove(X_folded, W_folded, u_in)
     u_w = torch.cat([u_out, u_in], dim=0)
     opening = pedersen.open_planar(layer.gens, layer.weights, layer.com, u_w)
     proof = ZkFCProof(u_bs, u_in, u_out, ip_polys, ip_finals, z_claim, opening)
-    challenges.absorb_array(ip_polys)
-    challenges.absorb_array(z_claim)
+    if not interleave:
+        challenges.absorb_array(ip_polys)
+        challenges.absorb_array(z_claim)
     return proof
 
 

@@ -2,13 +2,15 @@
 
 Counterpart of ``zkdl_tpu/models/zkrelu.py``: the width constants (:43-46),
 ``_width_consts``/``_split_mag`` (:81-118), ``forward_compact`` (:153-180),
-``ZkReluProof`` (:258-306), ``_layout_body``/``_claims_body`` (:352-394) and
-``prove_planar`` in grouped and chained modes (:419-507), and the host
-verifiers ``verify`` (:739-773) and ``verify_chained`` (:605-647). Per element of the
-pre-activation X (Montgomery Fr at scale 2^32), x = unmont(X) read as a
-signed 48-bit fixed-point value: positive iff x <= 2^47 - 1; mag is x or
-x + 2^47 (biased, negative); rem is a signed 16-bit remainder; the output is
-sign * mont((mag - rem) >> 16), ReLU fused with the /2^16 requantization.
+``ZkReluProof`` (:258-306), ``_layout_body``/``_claims_body`` (:352-394),
+``prove_planar`` in grouped and chained modes (:419-507) and its
+round-interleaved schedule ``_prove_planar_interleaved`` (:510-602), and the
+host verifiers ``verify`` (:739-773) and ``verify_chained`` (:605-647).
+Per element of the pre-activation X (Montgomery Fr at scale 2^32),
+x = unmont(X) read as a signed 48-bit fixed-point value: positive iff
+x <= 2^47 - 1; mag is x or x + 2^47 (biased, negative); rem is a signed
+16-bit remainder; the output is sign * mont((mag - rem) >> 16), ReLU fused
+with the /2^16 requantization.
 All 64-bit math runs on int64 (lo, hi) u32 pairs, as the JAX code does on u32.
 """
 
@@ -17,9 +19,9 @@ from __future__ import annotations
 import dataclasses
 import functools
 
-import numpy as np
 import torch
 
+from .. import config
 from ..field import fr, host, mp, planar
 from ..sumcheck import planar_protocols as pp
 from ..sumcheck import protocols as sc
@@ -27,11 +29,20 @@ from ..sumcheck.transcript import ChallengeSource
 from ..tensor import fr_ops
 from ..tensor import planar_ops as pops
 
-LOG_Q, Q = 5, 32  # mag_rescaled bit width
-LOG_R, R = 4, 16  # remainder width (R-1 magnitude bits + sign)
-SCALE_OUT_BITS = 16  # requantization shift == R: mag_rescaled = (mag - rem) >> R
-
 HF = host.fr
+
+
+# The width constants (zkrelu.py:set_widths): Q, the mag_rescaled bit width;
+# R, the remainder width (R-1 magnitude bits + sign); the requantization
+# shift SCALE_OUT_BITS == R, mag_rescaled = (mag - rem) >> R. The reference's
+# 32 and 16 (zkrelu.cu:74-77) unless ZKDL_RELU_MAG_BITS/ZKDL_RELU_REM_BITS
+# set others (config.py).
+Q, R = config.get().relu_mag_bits, config.get().relu_rem_bits
+# R <= 31: _split_mag shifts 32-bit words by R and by 32 - R
+if not (2 <= R <= 31 and 1 <= Q <= 32 and Q + R <= 64):
+    raise ValueError(f"ReLU widths Q={Q}, R={R} out of range")
+LOG_Q, LOG_R = (Q - 1).bit_length(), (R - 1).bit_length()
+SCALE_OUT_BITS = R
 
 
 @functools.lru_cache(maxsize=None)
@@ -159,13 +170,27 @@ def _claims_body(mag_bits, rem_bits, Xp, sign, u_rec, u_hp):
     return mag_at_u.transpose(0, 1).contiguous(), rem_at_u.transpose(0, 1).contiguous(), hp_claim, x_at_u
 
 
-def prove_planar(X: torch.Tensor, aux: dict, challenges: ChallengeSource, chain_point=None) -> ZkReluProof:
+def _check_chain_point(chain_point, n: int, log_size: int) -> None:
+    if chain_point.shape[0] != log_size:
+        raise ValueError(f"chain point {tuple(chain_point.shape)} vs log size {log_size}")
+    # the recombination identity assumes no zero-padded tail
+    if n != (1 << log_size):
+        raise ValueError("chained mode requires a power-of-two size")
+
+
+def prove_planar(X: torch.Tensor, aux: dict, challenges: ChallengeSource, chain_point=None,
+                 interleave: bool = False) -> ZkReluProof:
     """Planar prover on compact aux. Draw order: u_z, v_z, u_r, v_r, u_rec,
     u_hp, v_hp (the stream of zkdl_tpu's prove_planar).
 
     Chained mode (chain_point = w, host (log n, 8), the downstream FC's
     X-side point): also proves A = sign (.) mont(mag) with a Hadamard
-    sumcheck anchored at w, whose fold point v_a is u_rec, and emits X(v_a)."""
+    sumcheck anchored at w, whose fold point v_a is u_rec, and emits X(v_a).
+
+    interleave=True runs the round-interleaved Fiat-Shamir schedule
+    (``_prove_planar_interleaved``)."""
+    if interleave:
+        return _prove_planar_interleaved(X, aux, challenges, chain_point)
     n = X.shape[0]
     log_size = fr_ops.ceil_log2(n)
     u_z = challenges.random_vec(log_size + LOG_Q)
@@ -187,11 +212,7 @@ def prove_planar(X: torch.Tensor, aux: dict, challenges: ChallengeSource, chain_
 
     a_polys = a_finals = x_at_va = a_point = None
     if chain_point is not None:
-        if chain_point.shape[0] != log_size:
-            raise ValueError(f"chain point {tuple(chain_point.shape)} vs log size {log_size}")
-        # the recombination identity assumes no zero-padded tail
-        if n != (1 << log_size):
-            raise ValueError("chained mode requires a power-of-two size")
+        _check_chain_point(chain_point, n, log_size)
         a_point = chain_point
         a_polys, a_finals = pp.hadamard_prove_bits(mag_mont_rev, sign_rev, chain_point, u_rec)
         x_at_va = x_at_u
@@ -208,6 +229,56 @@ def prove_planar(X: torch.Tensor, aux: dict, challenges: ChallengeSource, chain_
     if a_polys is not None:
         challenges.absorb_array(a_polys)
     return proof
+
+
+def _prove_planar_interleaved(X: torch.Tensor, aux: dict, challenges: ChallengeSource,
+                              chain_point) -> ZkReluProof:
+    """The round-interleaved Fiat-Shamir schedule (zkrelu.py:510):
+
+      u_z <- draw ; mag binary sumcheck            (absorb poly_i, draw v_z[i])
+      u_r <- draw ; rem binary sumcheck            (absorb poly_i, draw v_r[i])
+      chained:   A-product sumcheck at chain_point (absorb poly_i, draw v_a[i]);
+                 u_rec := v_a
+      unchained: u_rec <- draw
+      u_hp <- draw
+      absorb(mag_bits_at_u, rem_bits_at_u, hp_claim, X(u_rec))
+      hp sumcheck of X (.) sign at u_hp            (absorb poly_i, draw v_hp[i])
+
+    Every fold challenge is drawn after its round's polynomial is absorbed.
+    X(u_rec) is stored as x_at_va in both modes: the replaying verifier
+    absorbs it from the proof."""
+    n = X.shape[0]
+    log_size = fr_ops.ceil_log2(n)
+    (mag_rev, rem_rev, X_rev, sign_rev, mag_mont_rev,
+     mag_bits, rem_bits, Xp, sign) = _layout_body(
+        X, aux["mag"], aux["rem_bits16"], aux["sign_bits"], log_size, Q, R)
+
+    u_z = challenges.random_vec(log_size + LOG_Q)
+    mag_polys, mag_final, v_z = pp.binary_prove_bits_interleaved(mag_rev, u_z, challenges)
+    u_r = challenges.random_vec(log_size + LOG_R)
+    rem_polys, rem_final, v_r = pp.binary_prove_bits_interleaved(rem_rev, u_r, challenges)
+
+    a_polys = a_finals = a_point = None
+    if chain_point is not None:
+        _check_chain_point(chain_point, n, log_size)
+        a_point = chain_point
+        a_polys, a_finals, u_rec = pp.hadamard_prove_bits_interleaved(
+            mag_mont_rev, sign_rev, chain_point, challenges)
+    else:
+        u_rec = challenges.random_vec(log_size)
+    u_hp = challenges.random_vec(log_size)
+
+    mag_at_u, rem_at_u, hp_claim, x_at_u = _claims_body(
+        mag_bits, rem_bits, Xp, sign, u_rec.numpy(), u_hp.numpy())
+    for claim in (mag_at_u, rem_at_u, hp_claim, x_at_u):
+        challenges.absorb_array(claim)
+    hp_polys, hp_finals, v_hp = pp.hadamard_prove_bits_interleaved(X_rev, sign_rev, u_hp, challenges)
+    return ZkReluProof(
+        u_z, v_z, u_r, v_r, u_rec, u_hp, v_hp,
+        mag_polys, mag_final, rem_polys, rem_final, hp_polys, hp_finals,
+        mag_at_u, rem_at_u, hp_claim,
+        a_point, a_polys, a_finals, x_at_u,
+    )
 
 
 def verify(proof: ZkReluProof) -> tuple[bool, str]:

@@ -1,9 +1,11 @@
 """Where one proving run's time goes on the card.
 
-    python -m zkdl_tpu_torch.profile_prove        # BENCH_CONFIG=zkdl256 (default)
+    python -m zkdl_tpu_torch.profile_prove [--trace DIR]   # BENCH_CONFIG=zkdl256 (default)
 
 Builds the bench configuration, warms up, then profiles one steady proving
-run with torch.profiler (CPU and CUDA activity). Everything is read from that
+run, in the configuration's Fiat-Shamir schedule, with torch.profiler (CPU
+and CUDA activity, ``utils/profiling.trace``; --trace also writes the
+run's Chrome trace to DIR/trace.json). Everything is read from that
 one profiled run: its wall time, the device time (kernels and copies summed;
 one stream, so they never overlap), the device's busy share over the span
 from the first kernel's start to the last kernel's end and over the run's
@@ -17,14 +19,15 @@ for reference only. The last line is the same record as JSON.
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import time
 
 import torch
-from torch.profiler import ProfilerActivity, profile
 
 from . import bench
+from .utils import profiling
 
 # hand-written kernels, by the device function names in csrc/
 OURS = {
@@ -42,15 +45,18 @@ def _group(name: str) -> str:
     return "pytorch: " + name.split("(")[0].strip()[:80]
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--trace", metavar="DIR", help="also write the profiled run's Chrome trace to DIR")
+    args = parser.parse_args(argv)
     config = os.environ.get("BENCH_CONFIG", "zkdl256")
     res = bench.run(config, split=False, verify=False)
     model, X, dev = res["model"], res["X"], res["X"].device
     Y, Z, A, aux = model.infer(X)
     torch.cuda.synchronize(dev)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiling.trace(args.trace) as prof:
         t0 = time.perf_counter()
-        model.prove(X, Y, Z, A, aux)
+        model.prove(X, Y, Z, A, aux, interleave=res["interleave"])
         torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
     groups: dict[str, list] = {}

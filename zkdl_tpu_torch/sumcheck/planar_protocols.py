@@ -13,7 +13,11 @@ The rounds run down to size 1. The JAX package's scan tails and fused tails
 stream, so they have no counterpart here.
 
 Challenges (u, v) are host uint32 (r, 8) tensors or arrays: fold challenges
-reach the kernels by value.
+reach the kernels by value. Each round is its polynomial (``_*_round_poly``)
+then its fold (``_fold_half``, ``_fold_bits0``). One loop per protocol runs
+them for the grouped provers, which take every challenge up front, and for
+the round-interleaved ones (:368-446 of the JAX file), which absorb each
+round's polynomial before drawing its fold challenge.
 """
 
 from __future__ import annotations
@@ -57,23 +61,35 @@ def _polys(stacked: torch.Tensor, scale) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _ip_round(a, b, x):
-    """a, b: (8, n) bit-rev planar. Emits (c0, c1, c2) (3, 8) and folded halves."""
+def _fold_half(a, d, x):
+    """Planar fold a (8, n) -> (8, n/2) at challenge x: a0 + x d, where
+    d = a1 - a0 is the difference the round's polynomial computed."""
+    return planar.add(a[:, : a.shape[1] // 2], planar.mul_scalar(d, x))
+
+
+def _fold_bits0(bits, neq, x):
+    """Fold packed bits (bool (n,)) at challenge x -> planar (8, n/2);
+    neq = the halves' inequality, as round 0's polynomial computed it."""
+    b0, b1 = _halves(bits)
+    return _fold_bits(b0, b1, neq, x)
+
+
+def _ip_round_poly(a, b):
+    """a, b: (8, n) bit-rev planar. Returns the round polynomial
+    (c0, c1, c2) (3, 8) and the halves' differences (da, db)."""
     a0, a1 = _halves(a)
     b0, b1 = _halves(b)
     da = planar.sub(a1, a0)
     db = planar.sub(b1, b0)
     dots = planar.dot_many([(a0, b0), (a0, db), (b0, da), (da, db)])  # (8, 4)
     c1 = planar.add(dots[:, 1], dots[:, 2])
-    poly = torch.stack([dots[:, 0], c1, dots[:, 3]])
-    a_n = planar.add(a0, planar.mul_scalar(da, x))
-    b_n = planar.add(b0, planar.mul_scalar(db, x))
-    return poly, a_n, b_n
+    return torch.stack([dots[:, 0], c1, dots[:, 3]]), da, db
 
 
-def _bin_round(a, w, scale, x):
+def _bin_round_poly(a, w, scale):
     """General binary round: a (8, n); w = eq-table prefix (8, n/2); scale
-    corrects the table's accumulated (1-u_j) factors; x = fold challenge."""
+    corrects the table's accumulated (1-u_j) factors. Returns the poly
+    and d = a1 - a0."""
     a0, a1 = _halves(a)
     d = planar.sub(a1, a0)
     aw = planar.mul(a0, w)
@@ -82,8 +98,7 @@ def _bin_round(a, w, scale, x):
     dots = planar.dot_many([(a0, aw), (d, aw), (d, dw)])
     c0 = planar.sub(dots[:, 0], planar.lazy_sum(aw))
     c1 = planar.sub(planar.double(dots[:, 1]), planar.lazy_sum(dw))
-    poly = _polys(torch.stack([c0, c1, dots[:, 2]], dim=1), scale)
-    return poly, planar.add(a0, planar.mul_scalar(d, x))
+    return _polys(torch.stack([c0, c1, dots[:, 2]], dim=1), scale), d
 
 
 def _fold_bits(b0, b1, neq, x):
@@ -97,18 +112,18 @@ def _fold_bits(b0, b1, neq, x):
     return planar.select(neq, hi_val, eqv)
 
 
-def _bin_round0_bits(bits, w, x):
+def _bin_round0_poly(bits, w):
     """Mul-free binary round 0 on packed bits (bool (n,), bit-rev storage):
-    c0 = 0, c2 = sum_{a0 != a1} w, c1 = -c2."""
+    c0 = 0, c2 = sum_{a0 != a1} w, c1 = -c2. Returns the poly and neq."""
     b0, b1 = _halves(bits)
     neq = b0 != b1
     c2 = planar.masked_sum(neq, w)
-    poly = torch.stack([torch.zeros_like(c2), planar.neg(c2), c2])
-    return poly, _fold_bits(b0, b1, neq, x)
+    return torch.stack([torch.zeros_like(c2), planar.neg(c2), c2]), neq
 
 
-def _hp_round(a, b, w, scale, x):
-    """General Hadamard round: a, b (8, n); w (8, n/2); fold challenge x."""
+def _hp_round_poly(a, b, w, scale):
+    """General Hadamard round: a, b (8, n); w (8, n/2). Returns the poly
+    and (da, db)."""
     a0, a1 = _halves(a)
     b0, b1 = _halves(b)
     da = planar.sub(a1, a0)
@@ -117,14 +132,12 @@ def _hp_round(a, b, w, scale, x):
     dbw = planar.mul(db, w)
     dots = planar.dot_many([(a0, bw), (da, bw), (a0, dbw), (da, dbw)])
     c1 = planar.add(dots[:, 1], dots[:, 2])
-    poly = _polys(torch.stack([dots[:, 0], c1, dots[:, 3]], dim=1), scale)
-    a_n = planar.add(a0, planar.mul_scalar(da, x))
-    b_n = planar.add(b0, planar.mul_scalar(db, x))
-    return poly, a_n, b_n
+    return _polys(torch.stack([dots[:, 0], c1, dots[:, 3]], dim=1), scale), da, db
 
 
-def _hp_round0_bits(a, bits, w, x):
-    """Hadamard round 0 with a bit-valued b: its products become selects."""
+def _hp_round0_poly(a, bits, w):
+    """Hadamard round 0 with a bit-valued b: its products become selects.
+    Returns the poly, da and neq."""
     a0, a1 = _halves(a)
     b0, b1 = _halves(bits)
     da = planar.sub(a1, a0)
@@ -138,9 +151,7 @@ def _hp_round0_bits(a, bits, w, x):
         (planar.add(a0db, planar.select(b0, da, zero)), w),
         (dadb, w),
     ])
-    b_n = _fold_bits(b0, b1, neq, x)
-    a_n = planar.add(a0, planar.mul_scalar(da, x))
-    return dots.transpose(0, 1).contiguous(), a_n, b_n
+    return dots.transpose(0, 1).contiguous(), da, neq
 
 
 def _eq_table(u_tail, device) -> torch.Tensor:
@@ -161,27 +172,52 @@ def _bit_final(bit: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # provers
 # ---------------------------------------------------------------------------
+#
+# Each protocol's rounds run once, in ``_*_rounds``, and take the fold
+# challenge of round i from next_challenge(i, poly). The grouped provers
+# read it from the challenges drawn up front (``_given``); the
+# round-interleaved ones (textbook sumcheck Fiat-Shamir) absorb the round's
+# polynomial and then draw it (``_Interleaved``): one host round trip per
+# round, with the same round polynomials and folds.
 
 
-def inner_product_prove(a_rev, b_rev, u):
-    """a_rev, b_rev: (8, 2^r) bit-rev planar; u: host (r, 8).
-    Returns (polys (r, 3, 8), finals (2, 8))."""
-    u = mp.host(u)
-    r = u.shape[0]
+def _given(xs):
+    """next_challenge of the grouped schedule: the i-th of xs (host (r, 8))."""
+    xs = mp.host(xs)
+    return lambda i, poly: xs[i]
+
+
+class _Interleaved:
+    """next_challenge of the round-interleaved schedule: absorbs the round's
+    polynomial, then draws its fold challenge; keeps what it drew."""
+
+    def __init__(self, challenges):
+        self.challenges, self.drawn = challenges, []
+
+    def __call__(self, i, poly) -> np.ndarray:
+        self.challenges.absorb_array(poly)
+        self.drawn.append(mp.host(self.challenges.random_vec(1))[0])
+        return self.drawn[-1]
+
+    def tensor(self) -> torch.Tensor:
+        """The drawn fold challenges as a host (r, 8) tensor."""
+        return torch.from_numpy(np.stack(self.drawn) if self.drawn else np.zeros((0, 8), np.uint32))
+
+
+def _ip_rounds(a_rev, b_rev, r, next_challenge):
     if a_rev.shape[1] != (1 << r):
         raise ValueError(f"inner_product_prove: size {a_rev.shape[1]} != 2^{r}")
     polys = []
     for i in range(r):
-        p, a_rev, b_rev = _ip_round(a_rev, b_rev, u[i])
+        p, da, db = _ip_round_poly(a_rev, b_rev)
+        x = next_challenge(i, p)
+        a_rev, b_rev = _fold_half(a_rev, da, x), _fold_half(b_rev, db, x)
         polys.append(p)
     finals = torch.stack([a_rev[:, 0], b_rev[:, 0]])
     return (torch.stack(polys) if polys else _empty_polys(a_rev.device)), finals
 
 
-def binary_prove_bits(bits_rev, u, v):
-    """Binary sumcheck on packed bits: bits_rev bool (2^r,) bit-rev storage;
-    u, v host (r, 8). Returns (polys (r, 3, 8), final (8,))."""
-    u, v = mp.host(u), mp.host(v)
+def _bin_rounds(bits_rev, u, next_challenge):
     r = u.shape[0]
     if bits_rev.shape[0] != (1 << r):
         raise ValueError(f"binary_prove_bits: size {bits_rev.shape[0]} != 2^{r}")
@@ -190,18 +226,17 @@ def binary_prove_bits(bits_rev, u, v):
         return _empty_polys(dev), _bit_final(bits_rev[0])
     table = _eq_table(u[1:], dev)
     scales = host_scales(u)
-    p0, a_rev = _bin_round0_bits(bits_rev, table, v[0])
-    polys = [p0]
+    p, neq = _bin_round0_poly(bits_rev, table)
+    a_rev = _fold_bits0(bits_rev, neq, next_challenge(0, p))
+    polys = [p]
     for i in range(1, r):
-        p, a_rev = _bin_round(a_rev, table[:, : a_rev.shape[1] // 2], scales[i], v[i])
+        p, d = _bin_round_poly(a_rev, table[:, : a_rev.shape[1] // 2], scales[i])
+        a_rev = _fold_half(a_rev, d, next_challenge(i, p))
         polys.append(p)
     return torch.stack(polys), a_rev[:, 0]
 
 
-def hadamard_prove_bits(a_rev, bits_rev, u, v):
-    """Hadamard sumcheck of a (.) b with b bit-valued (packed bool (2^r,)).
-    a_rev: (8, 2^r) bit-rev; u, v host (r, 8). Returns (polys, finals (2, 8))."""
-    u, v = mp.host(u), mp.host(v)
+def _hp_rounds(a_rev, bits_rev, u, next_challenge):
     r = u.shape[0]
     n = a_rev.shape[1]
     if n != (1 << r) or bits_rev.shape[0] != n:
@@ -211,9 +246,55 @@ def hadamard_prove_bits(a_rev, bits_rev, u, v):
         return _empty_polys(dev), torch.stack([a_rev[:, 0], _bit_final(bits_rev[0])])
     table = _eq_table(u[1:], dev)
     scales = host_scales(u)
-    p0, a_rev, b_rev = _hp_round0_bits(a_rev, bits_rev, table, v[0])
-    polys = [p0]
+    p, da, neq = _hp_round0_poly(a_rev, bits_rev, table)
+    x = next_challenge(0, p)
+    a_rev, b_rev = _fold_half(a_rev, da, x), _fold_bits0(bits_rev, neq, x)
+    polys = [p]
     for i in range(1, r):
-        p, a_rev, b_rev = _hp_round(a_rev, b_rev, table[:, : a_rev.shape[1] // 2], scales[i], v[i])
+        p, da, db = _hp_round_poly(a_rev, b_rev, table[:, : a_rev.shape[1] // 2], scales[i])
+        x = next_challenge(i, p)
+        a_rev, b_rev = _fold_half(a_rev, da, x), _fold_half(b_rev, db, x)
         polys.append(p)
     return torch.stack(polys), torch.stack([a_rev[:, 0], b_rev[:, 0]])
+
+
+def inner_product_prove(a_rev, b_rev, u):
+    """a_rev, b_rev: (8, 2^r) bit-rev planar; u: host (r, 8).
+    Returns (polys (r, 3, 8), finals (2, 8))."""
+    return _ip_rounds(a_rev, b_rev, u.shape[0], _given(u))
+
+
+def binary_prove_bits(bits_rev, u, v):
+    """Binary sumcheck on packed bits: bits_rev bool (2^r,) bit-rev storage;
+    u, v host (r, 8). Returns (polys (r, 3, 8), final (8,))."""
+    return _bin_rounds(bits_rev, mp.host(u), _given(v))
+
+
+def hadamard_prove_bits(a_rev, bits_rev, u, v):
+    """Hadamard sumcheck of a (.) b with b bit-valued (packed bool (2^r,)).
+    a_rev: (8, 2^r) bit-rev; u, v host (r, 8). Returns (polys, finals (2, 8))."""
+    return _hp_rounds(a_rev, bits_rev, mp.host(u), _given(v))
+
+
+def inner_product_prove_interleaved(a_rev, b_rev, challenges):
+    """Round-interleaved inner-product sumcheck: absorbs round i's poly,
+    THEN draws fold challenge u[i]. Returns (polys (r, 3, 8), finals (2, 8),
+    u (r, 8)): u is an output of the transcript, not an input."""
+    nc = _Interleaved(challenges)
+    return (*_ip_rounds(a_rev, b_rev, a_rev.shape[1].bit_length() - 1, nc), nc.tensor())
+
+
+def binary_prove_bits_interleaved(bits_rev, u, challenges):
+    """Round-interleaved binary sumcheck on packed bits: the anchor point u
+    (host (r, 8)) is an input, the fold challenges v are transcript outputs.
+    Returns (polys, final (8,), v (r, 8))."""
+    nc = _Interleaved(challenges)
+    return (*_bin_rounds(bits_rev, mp.host(u), nc), nc.tensor())
+
+
+def hadamard_prove_bits_interleaved(a_rev, bits_rev, u, challenges):
+    """Round-interleaved Hadamard sumcheck of a (.) b, b bit-valued (packed
+    bool (2^r,)); u host (r, 8) is the anchor. Returns (polys, finals (2, 8),
+    v (r, 8))."""
+    nc = _Interleaved(challenges)
+    return (*_hp_rounds(a_rev, bits_rev, mp.host(u), nc), nc.tensor())

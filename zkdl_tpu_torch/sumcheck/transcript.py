@@ -15,6 +15,7 @@ from typing import Iterable
 import numpy as np
 import torch
 
+from .. import config
 from ..field import fr, mp
 
 P_TOP = fr.P_TOP_LIMB
@@ -84,9 +85,13 @@ class SeededRng(ChallengeSource):
 
 
 class FiatShamir(ChallengeSource):
-    """BLAKE2s-based sponge: state <- H(state || absorbed); squeeze counter-mode."""
+    """BLAKE2s-based sponge: state <- H(state || absorbed); squeeze counter-mode.
+    The label defaults to config's fiat_shamir_label (b"zkdl-tpu-v1" unless
+    ZKDL_FIAT_SHAMIR_LABEL sets another)."""
 
-    def __init__(self, label: bytes = b"zkdl-tpu-v1"):
+    def __init__(self, label: bytes | None = None):
+        if label is None:
+            label = config.get().fiat_shamir_label
         self.state = hashlib.blake2s(label).digest()
         self.counter = 0
 

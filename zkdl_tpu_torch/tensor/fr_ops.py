@@ -1,10 +1,13 @@
-"""Shape helpers and the MLE evaluation of ``zkdl_tpu/tensor/fr_ops.py``."""
+"""Shape helpers, keyed draws and the MLE evaluation of
+``zkdl_tpu/tensor/fr_ops.py`` (``random_fr`` :129, ``random_int`` :140)."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from ..field import mp, planar
+from ..field import fr, mp, planar
+from ..utils import prng
 
 
 def ceil_log2(n: int) -> int:
@@ -22,6 +25,28 @@ def pad_to(t: torch.Tensor, n: int) -> torch.Tensor:
         raise ValueError(f"pad_to: length {t.shape[0]} > {n}")
     pad = torch.zeros((n - t.shape[0], *t.shape[1:]), dtype=t.dtype, device=t.device)
     return torch.cat([t, pad], dim=0)
+
+
+def random_fr(key: np.ndarray, n: int, device) -> torch.Tensor:
+    """(n, 8) uint32 raw Fr values drawn from `key`, those of the JAX
+    package's random_fr: 8 uniform u32 limbs, the top one reduced mod
+    P_TOP_LIMB (near-uniform, as the reference's FrTensor::random)."""
+    bits = prng.bits(key, (n, 8))
+    bits[:, 7] %= np.uint32(fr.P_TOP_LIMB)
+    return torch.from_numpy(bits).to(device)
+
+
+def random_int(key: np.ndarray, n: int, num_bits: int, device) -> torch.Tensor:
+    """(n, 8) raw Fr of centered num_bits-wide integers drawn from `key`:
+    (u32 & (2^num_bits - 1)) - 2^(num_bits-1) mod p, as the JAX package's
+    random_int."""
+    small = prng.bits(key, (n,)) & np.uint32((1 << num_bits) - 1)
+    t = np.zeros((8, n), dtype=np.uint32)
+    t[0] = small
+    offset = mp.limbs_from_int(1 << (num_bits - 1), 8)
+    dev = torch.device(device)
+    out = planar.sub(torch.from_numpy(t).to(dev), planar.const(offset, n, dev))
+    return planar.from_planar(out).contiguous()
 
 
 def _me_step_planar(tp: torch.Tensor, x) -> torch.Tensor:
