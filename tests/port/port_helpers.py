@@ -45,6 +45,9 @@ _JAX_CLASSES = {
     "ZkReluProof": jzkrelu.ZkReluProof,
     "OpeningProof": jpedersen.OpeningProof,
     "MLPProof": jmlp.MLPProof,
+    "AuxCommitments": jzkrelu.AuxCommitments,
+    "RowCommitments": jpedersen.RowCommitments,
+    "FoldOpening": jpedersen.FoldOpening,
 }
 
 

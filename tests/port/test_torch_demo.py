@@ -1,8 +1,8 @@
 """The port's drivers on the CPU: the TorchScript files of gen_benchmark
 read by both packages' pt_loader, the demo end to end (grouped and
 round-interleaved, with --verify), its output file, the committed-aux flag
-and variable, which raise, the config read from ZKDL_* as the JAX package
-reads it and what each variable changes, and the profiling helpers."""
+and variable, the config read from ZKDL_* as the JAX package reads it and
+what each variable changes, and the profiling helpers."""
 
 import json
 import os
@@ -31,6 +31,15 @@ ROOT = pathlib.Path(__file__).resolve().parents[2]
 def small(tmp_path_factory):
     d = tmp_path_factory.mktemp("small")
     gen_benchmark.generate(str(d), small=True)
+    return d
+
+
+@pytest.fixture(scope="module")
+def single(tmp_path_factory):
+    """The small model with a batch of one: its committed-aux verify runs the
+    plain G1 versions on fewer, smaller tensors."""
+    d = tmp_path_factory.mktemp("single")
+    gen_benchmark.generate(str(d), small=True, batch=1)
     return d
 
 
@@ -75,10 +84,15 @@ def test_demo_verifies_on_the_cpu(small, tmp_path, capsys, interleave):
     assert len(lines) == 4 * 64
 
 
-def test_demo_commit_aux_raises(small):
-    with pytest.raises(NotImplementedError, match="Queue A item 3"):
-        demo.main([str(small / "traced_model.pt"), str(small / "sample_input.pt"), "--commit-aux",
-                   "--device", "cpu"])
+def test_demo_commit_aux_verifies(single, tmp_path, capsys):
+    """--commit-aux proves the committed-aux tier and --verify checks its
+    openings: the same output, verified."""
+    out = tmp_path / "demo.out"
+    argv = [str(single / "traced_model.pt"), str(single / "sample_input.pt"), "--commit-aux", "--verify",
+            "--device", "cpu", "--out", str(out)]
+    assert demo.main(argv) == 0
+    assert "Verification: OK" in capsys.readouterr().out
+    assert out.read_text().splitlines() == expected_output_lines(single)
 
 
 KEPT = ("scale_bits", "relu_mag_bits", "relu_rem_bits", "commit_aux", "fiat_shamir_label")
@@ -98,14 +112,19 @@ def test_config_reads_env_as_jax(monkeypatch, env):
     assert sorted(f.name for f in __import__("dataclasses").fields(got)) == sorted(KEPT)
 
 
-def test_commit_aux_env_raises(small, monkeypatch):
+def test_commit_aux_env_commits(single, monkeypatch):
     """ZKDL_COMMIT_AUX=1 asks for the committed-aux tier without the flag:
-    the demo raises, never running the ordinary tier."""
+    the demo's prove commits the aux witnesses of its one ReLU layer."""
+    from zkdl_tpu_torch.models import zkrelu
+
     monkeypatch.setenv("ZKDL_COMMIT_AUX", "1")
     monkeypatch.setattr(config, "_CONFIG", None)
-    with pytest.raises(NotImplementedError, match="Queue A item 3"):
-        demo.main([str(small / "traced_model.pt"), str(small / "sample_input.pt"), "--verify",
-                   "--device", "cpu", "--out", str(small / "aux.out")])
+    calls = []
+    commit_aux = zkrelu.commit_aux
+    monkeypatch.setattr(zkrelu, "commit_aux", lambda aux: calls.append(aux) or commit_aux(aux))
+    assert demo.main([str(single / "traced_model.pt"), str(single / "sample_input.pt"),
+                      "--device", "cpu", "--out", str(single / "aux.out")]) == 0
+    assert len(calls) == 1
 
 
 ENV_EFFECTS = """

@@ -2,8 +2,8 @@
 proofs: the 8-wide, 2-layer chained Fiat-Shamir proof of ``conftest.chained``
 with one value tampered in each place a proof or statement can be changed,
 verified with and without transcript replay; the layer verifiers; the
-unchained SeededRng proof; and the committed-aux tier, which the port does
-not prove or verify: both raise."""
+unchained SeededRng proof; and the committed-aux knobs (the tier itself is
+held against the JAX package in test_torch_committed.py)."""
 
 import copy
 import dataclasses
@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from port_helpers import jax_model, to_jax
+from test_torch_chain import assert_same_arrays, proof_arrays
 from zkdl_tpu.models import zkfc as jzkfc, zkrelu as jzkrelu
 from zkdl_tpu.sumcheck.transcript import FiatShamir as JaxFiatShamir
 from zkdl_tpu_torch import config
@@ -109,19 +110,31 @@ def test_unchained_proof_verdicts_equal_jax(chained):
     assert jm.verify(jp, X=to_jax(c.X), Y_hat=to_jax(c.Y)) == want
 
 
-def test_unported_modes_raise(chained):
+def test_aux_coms_without_openings_rejected(chained, committed):
+    """The committed-aux tier is ported: a proof that carries a ReLU's aux
+    commitments without their openings never passes. Under replay both
+    verifiers reject it where the absorbed commitments move the draws;
+    without replay both raise on the missing openings."""
     c = chained
     proof = copy.deepcopy(c.proof)
-    proof.relu_proofs[0].aux_coms = object()
-    with pytest.raises(NotImplementedError, match="Queue A item 3"):
-        c.model.verify(proof, X=c.X, Y_hat=c.Y, transcript=FiatShamir())
-    with pytest.raises(NotImplementedError, match="Queue A item 3"):
-        c.model.verify(proof, X=c.X, Y_hat=c.Y, transcript=FiatShamir(), interleaved=True)
-    with pytest.raises(NotImplementedError):
+    proof.relu_proofs[0].aux_coms = committed[False].relu_proofs[0].aux_coms
+    jm, jp = jax_model(c.model), to_jax(proof)
+    want = (False, "transcript: relu[0].u_z_bin not derived from the transcript")
+    assert c.model.verify(proof, X=c.X, Y_hat=c.Y, transcript=FiatShamir()) == want
+    assert jm.verify(jp, X=to_jax(c.X), Y_hat=to_jax(c.Y), transcript=JaxFiatShamir()) == want
+    with pytest.raises(Exception):
         c.model.verify(proof, Y_hat=c.Y)
+    with pytest.raises(Exception):
+        jm.verify(jp, Y_hat=to_jax(c.Y))
 
-def test_commit_aux_config_makes_prove_raise(chained, monkeypatch):
+
+def test_commit_aux_config_makes_prove_raise(chained, committed, monkeypatch):
+    """config's commit_aux (ZKDL_COMMIT_AUX) is MLP.prove's default tier: an
+    unchained prove then raises, as the JAX prover does, and a chained one
+    is the committed proof."""
     c = chained
     monkeypatch.setattr(config, "_CONFIG", config.Config(commit_aux=True))
-    with pytest.raises(NotImplementedError, match="Queue A item 3"):
-        c.model.prove(c.X, c.Y, c.Z, c.A, c.aux, FiatShamir())
+    with pytest.raises(ValueError, match="committed aux requires chained mode"):
+        c.model.prove(c.X, c.Y, c.Z, c.A, c.aux, FiatShamir(), chain=False)
+    proof = c.model.prove(c.X, c.Y, c.Z, c.A, c.aux, FiatShamir())
+    assert_same_arrays(proof_arrays(proof), proof_arrays(committed[False]))

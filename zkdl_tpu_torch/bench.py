@@ -39,13 +39,14 @@ from .utils.runtime import resolve_device
 ZKDL_DIMS = [784, 1000, 1773, 1773, 1773, 1773, 1773, 1124, 1000]
 
 # (dims, batch, baseline s/point of the CUDA reference (proxies for
-# mid/micro), round-interleaved Fiat-Shamir schedule)
+# mid/micro), round-interleaved Fiat-Shamir schedule, committed-aux tier)
 CONFIGS = {
-    "zkdl256": (ZKDL_DIMS, 256, 0.1, False),
-    "zkdl256_interleaved": (ZKDL_DIMS, 256, 0.1, True),
-    "zkdl1": (ZKDL_DIMS, 1, 7.21, False),
-    "mid": ([128, 256, 256, 128], 32, 0.1, False),
-    "micro": ([64, 64, 64], 4, 0.1, False),
+    "zkdl256": (ZKDL_DIMS, 256, 0.1, False, False),
+    "zkdl256_interleaved": (ZKDL_DIMS, 256, 0.1, True, False),
+    "zkdl256_committed": (ZKDL_DIMS, 256, 0.1, False, True),
+    "zkdl1": (ZKDL_DIMS, 1, 7.21, False, False),
+    "mid": ([128, 256, 256, 128], 32, 0.1, False, False),
+    "micro": ([64, 64, 64], 4, 0.1, False, False),
 }
 
 
@@ -64,8 +65,8 @@ def make_weights(dims, rng: np.random.Generator) -> list[np.ndarray]:
 
 
 def launch_counts() -> dict[str, int]:
-    """Launch count of every hand-written kernel (K1-K4) so far."""
-    return {k.name: k.launches for k in (*kernels.KERNELS, g1.COMB)}
+    """Launch count of every hand-written kernel (K1-K6) so far."""
+    return {k.name: k.launches for k in (*kernels.KERNELS, *g1.KERNELS)}
 
 
 def _sync(dev: torch.device) -> None:
@@ -76,13 +77,14 @@ def _sync(dev: torch.device) -> None:
 def run(config: str = "zkdl256", device="cuda", split: bool = True, verify: bool = True) -> dict:
     """Build, infer and prove one configuration. Returns the model, inputs,
     outputs, proof and timings (seconds), and the configuration's
-    Fiat-Shamir schedule (interleave), which it proves and verifies. With
+    Fiat-Shamir schedule (interleave) and tier (commit_aux), which it proves
+    and verifies. With
     verify=True the steady proof is serialized and verified (host seconds,
     verdict, kernel launches of the verify); an exception of the verifier
     propagates. With split=True one more proving run is made with a device
     synchronize after every layer, for the per-layer fc/relu seconds."""
     dev = resolve_device(device)
-    dims, batch, baseline, interleave = CONFIGS[config]
+    dims, batch, baseline, interleave, commit_aux = CONFIGS[config]
     timer = profiling.PhaseTimer(dev)
     rng = np.random.default_rng(0)
     weights = make_weights(dims, rng)
@@ -99,12 +101,12 @@ def run(config: str = "zkdl256", device="cuda", split: bool = True, verify: bool
     log(f"infer: {infer_s:.3f}s")
 
     with timer.phase("warm-up infer + prove"):
-        proof, warm_spp = mlp.prove_timed(model, X, batch, interleave=interleave)
+        proof, warm_spp = mlp.prove_timed(model, X, batch, interleave=interleave, commit_aux=commit_aux)
     log(f"warmup done: {timer.totals['warm-up infer + prove']:.3f}s, spp={warm_spp:.6f}")
     before = launch_counts()
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    proof, spp = mlp.prove_timed(model, X, batch, interleave=interleave)
+    proof, spp = mlp.prove_timed(model, X, batch, interleave=interleave, commit_aux=commit_aux)
     per_prove = {k: v - before[k] for k, v in launch_counts().items()}
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else None
     log(f"steady-state spp={spp:.6f}; kernel launches per prove: {json.dumps(per_prove)}; "
@@ -135,11 +137,12 @@ def run(config: str = "zkdl256", device="cuda", split: bool = True, verify: bool
         Y2, Z2, A2, aux2 = model.infer(X)
         _sync(dev)
         marks[0] = time.perf_counter()
-        model.prove(X, Y2, Z2, A2, aux2, on_layer=on_layer, interleave=interleave)
+        model.prove(X, Y2, Z2, A2, aux2, on_layer=on_layer, interleave=interleave, commit_aux=commit_aux)
         log("per-layer prove seconds: " + json.dumps(layer_s))
     log("phases:\n" + timer.report())
     return {
         "config": config, "dims": dims, "batch": batch, "baseline_spp": baseline, "interleave": interleave,
+        "commit_aux": commit_aux,
         "weights": weights, "X_np": X_np, "model": model, "X": X, "Y_hat": Y_hat,
         "proof": proof, "build_s": build_s, "infer_s": infer_s,
         "warm_prove_s": warm_spp * batch, "prove_s": spp * batch, "spp": spp,
@@ -158,6 +161,8 @@ def main() -> None:
         "value": res["spp"],
         "unit": "s/point",
         "vs_baseline": res["baseline_spp"] / res["spp"] if res["spp"] > 0 else None,
+        "verify_s": res["verify_s"],
+        "proof_bytes": res["proof_bytes"],
     }))
 
 

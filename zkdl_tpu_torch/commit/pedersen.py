@@ -1,16 +1,25 @@
-"""Pedersen multilinear commitment with split-and-fold opening, dlog fast path.
+"""Pedersen multilinear commitment with split-and-fold opening, dlog fast path,
+and the committed-aux tier's NUMS generators and revealed-fold openings.
 
 Counterpart of ``zkdl_tpu/commit/pedersen.py``: ``Generators``,
 ``RowCommitments``, ``OpeningProof`` (:59-121), ``setup`` (:134-143),
 ``aux_generators`` (:146-155), ``commit`` with the dlog fast path (:157-171,
-:188-200), ``open_planar`` (:328-399), and the host verifier ``verify_open`` (:421-464) and
-``verify_open_against_com`` (:803-826).
+:188-200), ``open_planar`` (:328-399), the host verifier ``verify_open``
+(:421-464) and ``verify_open_against_com`` (:803-826); and the committed-aux
+tier: ``nums_generators`` (:607-643), ``commit_bits`` (:646-671),
+``FoldOpening``, ``open_reveal`` and ``verify_reveal`` (:674-794).
 
 The setup draws every generator's discrete log itself (a transparent
 stand-in for an SRS, as the reference's demo does), so all G1 tensor work
-collapses to Fr arithmetic on the dlogs: a row commitment is
-G^(sum_i t_i r_i), each opening point a single G^sigma. The only G1 code
-is the fixed-base comb (``curve/g1.py:generator_pow``, kernel K4).
+of the ordinary tier collapses to Fr arithmetic on the dlogs: a row
+commitment is G^(sum_i t_i r_i), each opening point a single G^sigma, through
+the fixed-base comb (``curve/g1.py:generator_pow``, kernel K4).
+
+The committed-aux tier has no dlogs: its NUMS generators are hashed to the
+curve, so its commitments are masked generator sums (K6) and its verifier
+recomputes a generator MSM and the row commitments' MLE with K5 and K6
+(``curve/g1.py``), on the card for CUDA tensors and with the plain versions
+on the CPU.
 
 Reference quirk kept: the opening's cross-term exponents are the Montgomery
 REPRESENTATION bits of the scalars (the R-scaled group elements), exactly as
@@ -25,12 +34,14 @@ Its scalar multiplications run in the native host library, a batch per call
 from __future__ import annotations
 
 import dataclasses
+import functools
+import hashlib
 
 import numpy as np
 import torch
 
 from ..curve import convert, g1, host_g1
-from ..field import fr, host, mp, planar
+from ..field import fp, fr, host, mp, planar
 from ..tensor import fr_ops
 from ..tensor import planar_ops as pops
 from ..utils import prng
@@ -97,8 +108,8 @@ def setup(key: np.ndarray, gen_size: int, device) -> Generators:
 def aux_generators(size: int, device) -> Generators:
     """The shared generator vector of the auxiliary-witness commitments
     (pedersen.py:aux_generators): the fixed key PRNGKey(0x5A6B) folded with
-    the size, so prover and verifier regenerate the same vector. The
-    committed-aux tier (ROADMAP.md Queue A item 3) will call it."""
+    the size, so prover and verifier regenerate the same vector. Nothing in
+    either package calls it: the committed-aux tier draws nums_generators."""
     return setup(prng.fold_in(prng.PRNGKey(0x5A6B), size), size, device)
 
 
@@ -249,3 +260,160 @@ def verify_open_against_com(proof: OpeningProof, com: RowCommitments, u) -> tupl
     if not host_g1.eq_points(_point(proof.com_at_u_row), pts[0]):
         return False, "com(u_row) mismatch"
     return True, ""
+
+
+# ---------------------------------------------------------------------------
+# committed-aux tier: NUMS generators, bit commitments, revealed-fold openings
+# ---------------------------------------------------------------------------
+
+_G1_COFACTOR = 0x396C8C005555E1568C00AAAB0000AAAB  # (x-1)^2 / 3
+
+_NUMS_STREAM: list = []  # accepted curve points (ctr, x, y), before cofactor clearing
+
+
+def _nums_affine(count: int) -> list:
+    """First `count` points of the deterministic try-and-increment stream
+    (pedersen.py:_nums_affine): x = SHA256("zkdl-tpu/nums/v1/<ctr>") ||
+    SHA256(".../<ctr>/b") mod p, y = the smaller sqrt of x^3 + 4 when it
+    exists (p = 3 mod 4)."""
+    p = fp.P_INT
+    ctr = len(_NUMS_STREAM) and _NUMS_STREAM[-1][0] + 1
+    while len(_NUMS_STREAM) < count:
+        h1 = hashlib.sha256(f"zkdl-tpu/nums/v1/{ctr}".encode()).digest()
+        h2 = hashlib.sha256(f"zkdl-tpu/nums/v1/{ctr}/b".encode()).digest()
+        x = int.from_bytes(h1 + h2, "big") % p
+        rhs = (x * x % p * x + 4) % p
+        y = pow(rhs, (p + 1) // 4, p)
+        if y * y % p == rhs:
+            _NUMS_STREAM.append((ctr, x, min(y, p - y)))
+        ctr += 1
+    return _NUMS_STREAM[:count]
+
+
+@functools.lru_cache(maxsize=None)
+def nums_generators(size: int, device) -> Generators:
+    """Nothing-up-my-sleeve generator vector (pedersen.py:nums_generators),
+    prefix-stable across sizes: the hashed candidates, cofactor-cleared into
+    the order-r subgroup by one scalar_mul (K5 on the card). Nobody knows
+    their dlogs, so commitments over them bind. Cached per size and device,
+    as the JAX function is per size."""
+    cands = convert.jac_to_device([host_g1.JacPoint(x, y, 1) for (_, x, y) in _nums_affine(size)], device)
+    cof = torch.from_numpy(mp.limbs_from_int(_G1_COFACTOR, 8)).to(cands.x.device)
+    pts = g1.scalar_mul(cands, cof)
+    if bool(g1.is_identity(pts).any()):
+        raise AssertionError("cofactor-cleared to identity")
+    return Generators(points=pts, dlogs=None, glv_safe=True)
+
+
+def commit_bits(gens: Generators, bits: torch.Tensor) -> RowCommitments:
+    """Row commitments of a 0/1-valued tensor (pedersen.py:commit_bits,
+    _commit_bits_rows): bits (m * gen_size,) uint32; row r's commitment is
+    the sum of the generators G_j with bits[r * gen_size + j] != 0, by
+    g1_sum's pairwise tree (K6, its first level in bit mode)."""
+    gen_size = gens.size
+    if bits.shape[0] % gen_size:
+        raise ValueError(f"commit_bits: {bits.shape[0]} bits not a multiple of {gen_size}")
+    m = bits.shape[0] // gen_size
+    return RowCommitments(points=g1.sum_bit_rows(bits.reshape(m, gen_size), gens.points))
+
+
+@dataclasses.dataclass
+class FoldOpening:
+    """Hyrax-style revealed-fold evaluation proof (pedersen.py:FoldOpening):
+    the prover reveals the u_row-fold of the committed tensor; the verifier
+    checks MSM_i g_i^unmont(t_folded_i) == the row commitments' MLE at u_row,
+    and the MLE of t_folded at u_in against the claimed value."""
+
+    t_folded: torch.Tensor  # (gen_size, 8) Montgomery
+
+
+def open_reveal(gens: Generators, t: torch.Tensor, com: RowCommitments, u) -> FoldOpening:
+    """Evaluation proof of t ((m * gen_size, 8) Montgomery) at the host
+    point u against com: t folded along the row part of u (the last log m
+    entries), fr_ops.partial_me with the generator axis as its window."""
+    u = mp.host(u)
+    gen_size = gens.size
+    log_m = fr_ops.ceil_log2(com.points.x.shape[0])
+    if gen_size != (1 << (u.shape[0] - log_m)):
+        raise ValueError(f"open_reveal: gen size {gen_size} vs point {u.shape} and {log_m} row bits")
+    t_folded = fr_ops.partial_me(t, u[u.shape[0] - log_m :], gen_size) if log_m else t
+    return FoldOpening(t_folded=t_folded)
+
+
+def verify_reveal(opening: FoldOpening, gens: Generators, com: RowCommitments, u,
+                  expected_value: int | None = None) -> tuple[bool, str]:
+    """Verify a FoldOpening (pedersen.py:verify_reveal), with its reasons.
+    u: the full evaluation point as Montgomery ints; gens: the vector the
+    commitment was built over."""
+    return verify_reveals([(opening, gens, com, u, expected_value)])[0]
+
+
+def _static_check(opening: FoldOpening, gens: Generators, com: RowCommitments, u) -> str | None:
+    gen_size = gens.size
+    shape = tuple(opening.t_folded.shape)
+    if shape != (gen_size, 8):
+        return f"fold shape {shape} != ({gen_size}, 8)"
+    if len(u) != fr_ops.ceil_log2(com.points.x.shape[0]) + fr_ops.ceil_log2(gen_size):
+        return "point length mismatch"
+    if not gens.glv_safe:
+        return "generators not subgroup-validated (run validate_subgroup)"
+    return None
+
+
+def _cat(points: list) -> g1.G1Jac:
+    return g1.G1Jac(*(torch.cat([getattr(p, c) for p in points]) for c in ("x", "y", "z")))
+
+
+def _split(p: g1.G1Jac, sizes: list[int]) -> list[g1.G1Jac]:
+    parts = [c.split(sizes) for c in p]
+    return [g1.G1Jac(*cs) for cs in zip(*parts)]
+
+
+def verify_reveals(checks) -> list[tuple[bool, str]]:
+    """verify_reveal of several openings, checks = [(opening, gens, com, u,
+    expected_value)], returning each one's (ok, reason). Their group math
+    shares launches: one scalar_mul for every MSM, one tree sum for the
+    MSMs of each generator size, and the row-commitment MLEs folded side by
+    side (g1.me_evals)."""
+    results: list = [None] * len(checks)
+    live = []
+    for k, (opening, gens, com, u, _) in enumerate(checks):
+        err = _static_check(opening, gens, com, u)
+        if err is None:
+            live.append(k)
+        else:
+            results[k] = (False, err)
+    if not live:
+        return results
+
+    msm_pts = _cat([checks[k][1].points for k in live])
+    msm_scalars = torch.cat([from_mont_rows(checks[k][0].t_folded) for k in live])
+    products = _split(g1.scalar_mul(msm_pts, msm_scalars), [checks[k][1].size for k in live])
+    msms = {}
+    for size in sorted({checks[k][1].size for k in live}):
+        group = [i for i, k in enumerate(live) if checks[k][1].size == size]
+        sums = g1.sum_rows(g1.G1Jac(*(torch.stack([getattr(products[i], c) for i in group]) for c in "xyz")))
+        for j, i in enumerate(group):
+            msms[live[i]] = g1.G1Jac(*(c[j] for c in sums))
+
+    u_rows, u_ins = {}, {}
+    for k in live:
+        _, _, com, u, _ = checks[k]
+        log_m = fr_ops.ceil_log2(com.points.x.shape[0])
+        u_rows[k], u_ins[k] = list(u[len(u) - log_m :]), list(u[: len(u) - log_m])
+    mles = dict(zip(live, g1.me_evals([checks[k][2].points for k in live], [u_rows[k] for k in live])))
+
+    for k in live:
+        opening, _, _, _, expected = checks[k]
+        if not host_g1.eq_points(_point(msms[k]), _point(mles[k])):
+            results[k] = (False, "generator MSM != row-commitment MLE at u_row")
+            continue
+        if expected is not None:
+            u_in = torch.from_numpy(fr.from_ints(u_ins[k], mont_form=False)) if u_ins[k] else \
+                torch.zeros((0, 8), dtype=torch.uint32)
+            value = fr.to_ints(mp.host(fr_ops.me_eval(opening.t_folded, u_in))[None])[0]
+            if value != expected:
+                results[k] = (False, "folded MLE value != expected")
+                continue
+        results[k] = (True, "")
+    return results

@@ -12,8 +12,8 @@ mean something in it:
   ``models/quantize.py`` is imported;
 - ``relu_mag_bits``, ``relu_rem_bits``: the ReLU widths Q and R, read when
   ``models/zkrelu.py`` is imported;
-- ``commit_aux``: the committed-aux tier. It is not ported (ROADMAP.md
-  Queue A item 3): ``MLP.prove`` raises NotImplementedError while it is set;
+- ``commit_aux``: the committed-aux tier, the default of ``MLP.prove``'s
+  ``commit_aux`` (the demo's ``--commit-aux`` sets it for one run);
 - ``fiat_shamir_label``: the label of every ``FiatShamir()`` transcript made
   without one (``sumcheck/transcript.py``).
 
@@ -39,7 +39,7 @@ class Config:
     relu_mag_bits: int = 32  # Q: rescaled-magnitude width
     relu_rem_bits: int = 16  # R: remainder width (15 magnitude + sign)
 
-    # committed-aux soundness tier (not ported: asking for it raises)
+    # committed-aux soundness tier (aux bit commitments and their openings)
     commit_aux: bool = False
 
     # transcript

@@ -1,9 +1,11 @@
-"""BLS12-381 G1 in Jacobian coordinates: the fixed-base comb (kernel K4).
+"""BLS12-381 G1 in Jacobian coordinates: the fixed-base comb (kernel K4) and
+the variable-base arithmetic (kernels K5 and K6).
 
-Counterpart of the parts of ``zkdl_tpu/curve/g1.py`` on the prover's path:
-``G1Jac``, ``identity``, ``is_identity``, ``select``, ``double``,
-``add_mixed``, ``_comb_table`` and ``generator_pow``. Points are three
-uint32 (..., 12) Montgomery Fp tensors; z == 0 encodes the identity.
+Counterpart of ``zkdl_tpu/curve/g1.py``: ``G1Jac``, ``identity``,
+``is_identity``, ``neg``, ``select``, ``double``, ``add``, ``add_mixed``,
+``scalar_mul``, ``_comb_table``, ``generator_pow``, ``g1_sum``, ``me_step``
+and ``me_eval``. Points are three uint32 (..., 12) Montgomery Fp tensors;
+z == 0 encodes the identity.
 
 ``generator_pow`` on a CUDA tensor launches K4 (``csrc/g1_comb.cu``), which
 replaces the XLA loop of g1.py:generator_pow (:378-397): a warp walks the 64
@@ -12,6 +14,13 @@ of each formula level side by side, one limb per lane. On a CPU tensor it
 runs ``generator_pow_plain``, the same branchless comb as the JAX code over
 the plain Fp ops. Bounded on an H100 by the chain of dependent Fp products
 of one scalar (5 levels per nonzero window), not by the multiply rate.
+
+``scalar_mul`` on CUDA tensors launches K5 and ``add`` (with the tree sums
+``g1_sum``/``sum_rows``, the bit-masked first level ``add_bits`` and the
+MLE folds built on it) K6, both in ``csrc/g1_var.cu``: one thread a point,
+the formulas of g1.py:add (:106-132), double (:90-103) and scalar_mul
+(:168-184) value for value, so the Jacobian limbs equal the JAX package's.
+On CPU tensors they run ``scalar_mul_plain``/``add_plain``/``add_bits_plain``.
 """
 
 from __future__ import annotations
@@ -23,7 +32,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..field import fp, mp
+from ..field import fp, fr, host, mp
 from ..field.kernels import Kernel
 from ..utils import build
 from . import host_g1
@@ -42,6 +51,9 @@ class G1Jac(NamedTuple):
 
 
 COMB = Kernel("g1_comb", "zkdl_tpu_torch/csrc/g1_comb.cu", "zkdl_tpu/curve/g1.py:378")
+SCALAR_MUL = Kernel("g1_scalar_mul", "zkdl_tpu_torch/csrc/g1_var.cu", "zkdl_tpu/curve/g1.py:168")
+ADD = Kernel("g1_add", "zkdl_tpu_torch/csrc/g1_var.cu", "zkdl_tpu/curve/g1.py:106")
+KERNELS = (COMB, SCALAR_MUL, ADD)
 
 _COMB_W = 4
 _COMB_WINDOWS = 256 // _COMB_W
@@ -116,6 +128,37 @@ def _add_mixed_w(p, qx, qy):
         out = _select_w(same, _double_w(p), out)
     one = mp.const(fp.ONE_MONT, x).expand_as(x)
     return _select_w(fp.is_zero_w(z), (qx, qy, one), out)
+
+
+def _add_w(p, q):
+    """add-2007-bl with the edge cases of g1.py:add (:106-132), in its select
+    order: equal points take double(p) (computed only when some element
+    needs it), then q == O takes p, then p == O takes q. p = -q runs the
+    generic formula to z3 = 0."""
+    x1, y1, z1 = p
+    x2, y2, z2 = q
+    z1z1, z2z2, y1z2, y2z1 = _muls_w((z1, z1), (z2, z2), (y1, z2), (y2, z1))
+    u1, u2, s1, s2 = _muls_w((x1, z2z2), (x2, z1z1), (y1z2, z2z2), (y2z1, z1z1))
+    h = fp.sub_w(u2, u1)
+    h2 = fp.double_w(h)
+    r = fp.double_w(fp.sub_w(s2, s1))
+    zz = fp.add_w(z1, z2)
+    i, rr, zz2 = _muls_w((h2, h2), (r, r), (zz, zz))
+    j, v = _muls_w((h, i), (u1, i))
+    x3 = fp.sub_w(fp.sub_w(fp.sub_w(rr, j), v), v)
+    y3a, s1j, z3 = _muls_w((fp.sub_w(v, x3), r), (s1, j), (fp.sub_w(fp.sub_w(zz2, z1z1), z2z2), h))
+    out = (x3, fp.sub_w(y3a, fp.double_w(s1j)), z3)
+    same = fp.eq_w(u1, u2) & fp.eq_w(s1, s2)
+    if bool(same.any()):
+        out = _select_w(same, _double_w(p), out)
+    out = _select_w(fp.is_zero_w(z2), p, out)
+    return _select_w(fp.is_zero_w(z1), q, out)
+
+
+def _neg_w(p):
+    """(x, 0 - y mod p, z): g1.py:neg with fp.neg = mod_sub(0, y)."""
+    x, y, z = p
+    return x, fp.sub_w(torch.zeros_like(y), y), z
 
 
 def double(p: G1Jac) -> G1Jac:
@@ -227,3 +270,295 @@ def generator_pow(scalar: torch.Tensor) -> G1Jac:
     else:
         raise ValueError(f"unsupported device {scalar.device}")
     return G1Jac(*(c.reshape(*lead, 12) for c in out))
+
+
+# --- variable-base arithmetic: K5 (scalar_mul) and K6 (add) ----------------
+
+_PLAIN_CHUNK = 1 << 15  # points per step of the plain versions (bounds their temporaries)
+
+
+def _flat(p: G1Jac) -> G1Jac:
+    return G1Jac(*(c.reshape(-1, 12) for c in p))
+
+
+def _device(*ts: torch.Tensor) -> torch.device:
+    """The one device of the operands: CPU (plain versions) or CUDA
+    (kernels); mixed or other devices raise."""
+    devs = {t.device for t in ts}
+    if len(devs) != 1:
+        raise ValueError(f"operands on different devices: {devs}")
+    dev = devs.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def _check_points(*ps: G1Jac) -> None:
+    for p in ps:
+        for c in p:
+            if c.dtype != torch.uint32 or c.shape[-1] != 12:
+                raise ValueError(f"expected uint32 (..., 12) coordinates, got {c.dtype} {tuple(c.shape)}")
+
+
+def _chunked(n: int, step):
+    """Concatenate step(lo, hi) (each a G1Jac of (hi - lo,) points) over
+    chunks of the n points."""
+    parts = [step(lo, min(lo + _PLAIN_CHUNK, n)) for lo in range(0, n, _PLAIN_CHUNK)]
+    if not parts:
+        return None
+    return G1Jac(*(torch.cat([getattr(q, c) for q in parts]) for c in ("x", "y", "z")))
+
+
+def _work(p: G1Jac, lo: int, hi: int):
+    return tuple(fp.to_work(c[lo:hi]) for c in p)
+
+
+def _stored(w) -> G1Jac:
+    return G1Jac(*(fp.from_work(c) for c in w))
+
+
+def add_plain(p: G1Jac, q: G1Jac, neg_q: bool = False) -> G1Jac:
+    """add(p, -q if neg_q else q) of (n,) point vectors, plain PyTorch."""
+    p, q = _flat(p), _flat(q)
+    n = p.x.shape[0]
+
+    def step(lo, hi):
+        qw = _work(q, lo, hi)
+        return _stored(_add_w(_work(p, lo, hi), _neg_w(qw) if neg_q else qw))
+
+    return _chunked(n, step) or identity((0,), p.x.device)
+
+
+def _leaves(bits: torch.Tensor, gens: G1Jac) -> G1Jac:
+    """bits[e] != 0 ? G[e mod gen] : O for every e (the masked leaves of
+    pedersen._commit_bits_rows)."""
+    gen = gens.x.shape[0]
+    idx = torch.arange(bits.shape[0], device=bits.device) % gen
+    g = G1Jac(*(mp.take(c, idx, 0) for c in gens))
+    return select(bits.view(torch.int32) != 0, g, identity((bits.shape[0],), bits.device))
+
+
+def add_bits_plain(bits: torch.Tensor, gens: G1Jac) -> G1Jac:
+    """The bit mode of K6, plain: leaf(2i) + leaf(2i + 1) for the (2n,)
+    0/1 words bits, leaf(e) = bits[e] != 0 ? G[e mod gen] : O."""
+    leaves = _leaves(bits, gens)
+    return add_plain(G1Jac(*(c[0::2] for c in leaves)), G1Jac(*(c[1::2] for c in leaves)))
+
+
+def _scalar_bits(scalar: torch.Tensor) -> torch.Tensor:
+    """(N, 8) raw scalars -> (N, 256) bool bits, LSB first."""
+    shifts = torch.arange(32, device=scalar.device)
+    return ((mp.i64(scalar).unsqueeze(-1) >> shifts) & 1).reshape(scalar.shape[0], 256) == 1
+
+
+def _scalar_mul_w(p, bits):
+    """g1.py:scalar_mul's loop (out = bit ? add(out, acc) : out, acc =
+    double(acc)) over the working form, up to the highest bit set in any
+    scalar (past it out no longer changes); a bit no scalar has set skips
+    its add."""
+    zero = torch.zeros_like(p[0])
+    out, acc = (zero, zero, zero), p
+    live = bits.any(0).nonzero()
+    top = int(live.max()) if live.numel() else -1
+    for b in range(top + 1):
+        m = bits[:, b]
+        if bool(m.any()):
+            out = _select_w(m, _add_w(out, acc), out)
+        if b < top:
+            acc = _double_w(acc)
+    return out
+
+
+def scalar_mul_plain(p: G1Jac, scalar: torch.Tensor) -> G1Jac:
+    """scalar * p for (n,) points and raw (non-Montgomery) scalars, (n, 8)
+    or one (8,) for all, plain PyTorch."""
+    p = _flat(p)
+    n = p.x.shape[0]
+    sc = scalar.reshape(-1, 8).expand(n, 8) if scalar.dim() == 1 else scalar.reshape(n, 8)
+    return _chunked(n, lambda lo, hi: _stored(_scalar_mul_w(_work(p, lo, hi), _scalar_bits(sc[lo:hi])))) \
+        or identity((0,), p.x.device)
+
+
+def _var_lib() -> ctypes.CDLL:
+    lib = build.load("g1_var")
+    if not getattr(lib, "_zk_typed", False):
+        P, I = ctypes.c_void_p, ctypes.c_longlong
+        lib.zk_g1_scalar_mul.argtypes = [P, P, P, I, P, I, P, P, P, I, P, ctypes.c_int]
+        lib.zk_g1_add.argtypes = [P, P, P, I, P, P, P, I, ctypes.c_int, P, I, P, P, P, I, P, ctypes.c_int]
+        lib.zk_g1_scalar_mul.restype = lib.zk_g1_add.restype = ctypes.c_int
+        lib._zk_typed = True
+    return lib
+
+
+def _rows_and_stride(p: G1Jac) -> tuple[G1Jac, int]:
+    """p as (n, 12) coordinates that share one element stride in words (a
+    strided view as it is, anything else made contiguous)."""
+    cs = [c.reshape(-1, 12) for c in p]
+    n = cs[0].shape[0]
+    stride = cs[0].stride(0) if n > 1 else 12
+    if any(c.stride(1) != 1 or (n > 1 and c.stride(0) != stride) for c in cs):
+        cs, stride = [c.contiguous() for c in cs], 12
+    return G1Jac(*cs), stride
+
+
+def _launch(kernel: Kernel, fn, dev: torch.device, n: int, *args) -> G1Jac:
+    """Launch fn(*args, out x, y, z, n, stream, device) into a new (n,)
+    point vector; count the launch."""
+    pts = torch.empty((3, n, 12), dtype=torch.uint32, device=dev)
+    if n:
+        rc = fn(*args, pts[0].data_ptr(), pts[1].data_ptr(), pts[2].data_ptr(), n,
+                torch._C._cuda_getCurrentRawStream(dev.index), dev.index)
+        if rc != 0:
+            raise RuntimeError(f"{kernel.name}: CUDA error {rc}")
+        kernel.launches += 1
+    return G1Jac(*pts)
+
+
+def _add(p: G1Jac, q: G1Jac, neg_q: bool) -> G1Jac:
+    _check_points(p, q)
+    shape = p.shape
+    if q.shape != shape:
+        raise ValueError(f"add: point shapes {tuple(shape)} and {tuple(q.shape)}")
+    dev = _device(*p, *q)
+    if dev.type == "cpu":
+        out = add_plain(p, q, neg_q)
+    else:
+        (pr, ps), (qr, qs) = _rows_and_stride(p), _rows_and_stride(q)
+        out = _launch(ADD, _var_lib().zk_g1_add, dev, pr.x.shape[0],
+                      *(c.data_ptr() for c in pr), ps, *(c.data_ptr() for c in qr), qs, int(neg_q), None, 0)
+    return G1Jac(*(c.reshape(*shape, 12) for c in out))
+
+
+def neg(p: G1Jac) -> G1Jac:
+    """(x, -y, z) (g1.py:neg), plain PyTorch on any device."""
+    _, y, _ = _neg_w((None, fp.to_work(p.y), None))
+    return G1Jac(p.x, fp.from_work(y), p.z)
+
+
+def add(p: G1Jac, q: G1Jac) -> G1Jac:
+    """Elementwise p + q (g1.py:add, limb for limb): K6 on CUDA tensors, the
+    plain version on CPU ones."""
+    return _add(p, q, neg_q=False)
+
+
+def add_bits(bits: torch.Tensor, gens: G1Jac) -> G1Jac:
+    """One bit-masked tree level: leaf(2i) + leaf(2i + 1) for the (2n,) 0/1
+    uint32 words bits, leaf(e) = bits[e] != 0 ? G[e mod gen] : O (the first
+    level of pedersen._commit_bits_rows, its leaves never stored): K6's bit
+    mode on CUDA tensors, the plain version on CPU ones."""
+    _check_points(gens)
+    if bits.dtype != torch.uint32 or bits.dim() != 1 or bits.shape[0] % 2:
+        raise ValueError(f"add_bits: expected an even uint32 (2n,) vector, got {bits.dtype} {tuple(bits.shape)}")
+    dev = _device(bits, *gens)
+    if dev.type == "cpu":
+        return add_bits_plain(bits, gens)
+    g = G1Jac(*(c.reshape(-1, 12).contiguous() for c in gens))
+    bits = bits.contiguous()
+    return _launch(ADD, _var_lib().zk_g1_add, dev, bits.shape[0] // 2,
+                   *(c.data_ptr() for c in g), 12, None, None, None, 0, 0, bits.data_ptr(), g.x.shape[0])
+
+
+def scalar_mul(p: G1Jac, scalar: torch.Tensor) -> G1Jac:
+    """scalar * p by g1.py:scalar_mul's LSB-first double-and-add (limb for
+    limb). scalar: raw (non-Montgomery) uint32, one per point (*p.shape, 8)
+    or one (8,) for all. K5 on CUDA tensors, the plain version on CPU ones."""
+    _check_points(p)
+    shape = p.shape
+    if scalar.dtype != torch.uint32 or scalar.shape[-1] != 8 or (
+            scalar.dim() != 1 and tuple(scalar.shape[:-1]) != tuple(shape)):
+        raise ValueError(f"scalar_mul: scalars {scalar.dtype} {tuple(scalar.shape)} for points {tuple(shape)}")
+    dev = _device(scalar, *p)
+    if dev.type == "cpu":
+        out = scalar_mul_plain(p, scalar)
+    else:
+        pr, ps = _rows_and_stride(p)
+        sc = scalar.reshape(-1, 8).contiguous()
+        out = _launch(SCALAR_MUL, _var_lib().zk_g1_scalar_mul, dev, pr.x.shape[0],
+                      *(c.data_ptr() for c in pr), ps, sc.data_ptr(), 0 if scalar.dim() == 1 else 8)
+    return G1Jac(*(c.reshape(*shape, 12) for c in out))
+
+
+def sum_rows(p: G1Jac, plain: bool = False) -> G1Jac:
+    """(R, W) points -> (R,) row sums by g1.py:g1_sum's pairwise tree along
+    each row (:413-430): level by level out[:, i] = p[:, 2i] + p[:, 2i + 1],
+    an odd row padded with the identity at its end. One add a level
+    (add_plain with plain=True, on any device)."""
+    R, W = p.shape
+    if W == 0:
+        raise ValueError("sum_rows: empty rows")
+    while W > 1:
+        if W % 2:
+            pad = identity((R, 1), p.x.device)
+            p = G1Jac(*(torch.cat([c, d], 1) for c, d in zip(p, pad)))
+            W += 1
+        flat = G1Jac(*(c.reshape(R * W, 12) for c in p))
+        p = (add_plain if plain else add)(G1Jac(*(c[0::2] for c in flat)), G1Jac(*(c[1::2] for c in flat)))
+        W //= 2
+        p = G1Jac(*(c.reshape(R, W, 12) for c in p))
+    return G1Jac(*(c.reshape(R, 12) for c in p))
+
+
+def g1_sum(p: G1Jac) -> G1Jac:
+    """Sum of an (n,) point vector by g1.py:g1_sum's pairwise tree -> ()."""
+    s = sum_rows(G1Jac(*(c.reshape(1, -1, 12) for c in p)))
+    return G1Jac(*(c[0] for c in s))
+
+
+def sum_bit_rows(bits2: torch.Tensor, gens: G1Jac, plain: bool = False) -> G1Jac:
+    """(m, gen) 0/1 uint32 words -> (m,) row sums of bits2[r, j] ? G[j] : O
+    by g1_sum's tree (pedersen._commit_bits_rows): an even row width starts
+    with one bit-mode level (add_bits), an odd one from the selected leaves.
+    plain=True runs the plain versions on any device."""
+    m, gen = bits2.shape
+    if gen % 2:
+        leaves = _leaves(bits2.reshape(-1), gens)
+        return sum_rows(G1Jac(*(c.reshape(m, gen, 12) for c in leaves)), plain)
+    first = (add_bits_plain if plain else add_bits)(bits2.reshape(-1), gens)
+    return sum_rows(G1Jac(*(c.reshape(m, gen // 2, 12) for c in first)), plain)
+
+
+def me_step(ps: list[G1Jac], xs: list[int]) -> list[G1Jac]:
+    """One G1 multilinear fold (g1.py:me_step :433-452) of each even-length
+    point vector ps[k] by its challenge xs[k] (a Montgomery Fr int), the
+    vectors side by side: out[i] = a0 + x (a1 + (-a0)), a0 = p[2i], a1 =
+    p[2i + 1], the challenge unmonted on the host. Three launches for all
+    the vectors: two adds (the first with q negated) and a scalar_mul with a
+    scalar per point."""
+    dev = ps[0].x.device
+    halves = [p.x.shape[0] // 2 for p in ps]
+    scalars = np.repeat(np.stack([fr.from_int(host.fr.unmont(x)) for x in xs]), halves, axis=0)
+    p = G1Jac(*(torch.cat(cs) for cs in zip(*ps)))
+    a0 = G1Jac(*(c[0::2] for c in p))
+    a1 = G1Jac(*(c[1::2] for c in p))
+    out = add(a0, scalar_mul(_add(a1, a0, neg_q=True), torch.from_numpy(scalars).to(dev)))
+    return [G1Jac(*cs) for cs in zip(*(c.split(halves) for c in out))]
+
+
+def me_evals(ps: list[G1Jac], us: list[list[int]]) -> list[G1Jac]:
+    """G1 MLEs (g1.py:me_eval :455-462) of several (n_k,) point vectors, each
+    at its own point u_k (Montgomery Fr ints, u_k[0] binding the lowest
+    index bit; 2^(r_k - 1) < n_k <= 2^r_k) -> one () point each, folded
+    side by side (me_step). A vector is padded with the identity to 2^r_k
+    up front, as the JAX verifier pads on its device: the identity's limbs
+    (0, 0, 0) fold to themselves, so this equals me_step's padding of each
+    odd level limb for limb."""
+    ps = list(ps)
+    for k, (p, u) in enumerate(zip(ps, us)):
+        n, r = p.x.shape[0], len(u)
+        if not (1 << r) // 2 < n <= (1 << r):
+            raise ValueError(f"me_eval: {n} points for a {r}-variable point")
+        if n < (1 << r):
+            pad = identity(((1 << r) - n,), p.x.device)
+            ps[k] = G1Jac(*(torch.cat([c, d]) for c, d in zip(p, pad)))
+    for level in range(max((len(u) for u in us), default=0)):
+        live = [k for k, u in enumerate(us) if level < len(u)]
+        for k, f in zip(live, me_step([ps[k] for k in live], [us[k][level] for k in live])):
+            ps[k] = f
+    return [G1Jac(*(c[0] for c in p)) for p in ps]
+
+
+def me_eval(p: G1Jac, u_mont) -> G1Jac:
+    """G1 MLE of the (n,) points at u ((r, 8) Montgomery, any device; u[0]
+    binds the lowest index bit) -> () (g1.py:me_eval :455-462); requires
+    2^(r-1) < n <= 2^r."""
+    return me_evals([p], [fr.to_ints(mp.host(u_mont))])[0]

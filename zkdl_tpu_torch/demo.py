@@ -1,7 +1,7 @@
 """End-to-end demo CLI of the port (the port's copy of ``zkdl_tpu/demo.py``).
 
     python -m zkdl_tpu_torch.demo traced_model.pt sample_input.pt [--out demo.out]
-        [--verify] [--interleave] [--device cuda]
+        [--verify] [--interleave] [--commit-aux] [--device cuda]
 
 Loads a TorchScript MLP, quantizes and commits the weights (generators from
 PRNGKey(0), as the JAX demo draws them), runs quantized inference, writes
@@ -10,9 +10,10 @@ significant first, as %08x), then times the backwards proving loop and
 prints seconds per data point; --verify checks the proof with Fiat-Shamir
 replay and the public anchors on X and Y_hat. --interleave proves and
 verifies with the round-interleaved Fiat-Shamir schedule. --commit-aux (or
-ZKDL_COMMIT_AUX=1, read by the prover) asks for the committed-aux tier,
-which is not ported: it raises. Runs on the card unless --device cpu is
-given.
+ZKDL_COMMIT_AUX=1, read by the prover) proves the committed-aux tier: every
+ReLU's auxiliary bits are committed over NUMS generators and opened where
+the proof claims their values, and --verify checks those openings too.
+Runs on the card unless --device cpu is given.
 """
 
 from __future__ import annotations
@@ -47,15 +48,13 @@ def main(argv=None) -> int:
     parser.add_argument("--out", default="demo.out")
     parser.add_argument("--verify", action="store_true")
     parser.add_argument("--commit-aux", action="store_true",
-                        help="committed-aux soundness tier (not ported: raises)")
+                        help="committed-aux soundness tier (aux bit commitments and their openings)")
     parser.add_argument("--interleave", action="store_true",
                         help="round-interleaved Fiat-Shamir (textbook sumcheck "
                              "FS order; one host round trip per round)")
     parser.add_argument("--device", default="cuda",
                         help="torch device (default cuda; cpu runs the plain PyTorch versions)")
     args = parser.parse_args(argv)
-    if args.commit_aux:
-        raise NotImplementedError(mlp.COMMIT_AUX_NOT_PORTED)
     dev = resolve_device(args.device)
     timer = profiling.PhaseTimer(dev)
 
@@ -78,7 +77,8 @@ def main(argv=None) -> int:
     write_output(args.out, Y_hat)
 
     with timer.phase("proof"):
-        proof = model.prove(X, Y_hat, Z_list, A_list, aux_list, FiatShamir(), interleave=args.interleave)
+        proof = model.prove(X, Y_hat, Z_list, A_list, aux_list, FiatShamir(), interleave=args.interleave,
+                            commit_aux=args.commit_aux or None)
     print(f"Proof time: {timer.totals['proof'] / batch} seconds per data point.")
 
     if args.verify:

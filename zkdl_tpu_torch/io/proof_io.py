@@ -20,14 +20,15 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..commit.pedersen import OpeningProof
+from ..commit.pedersen import FoldOpening, OpeningProof, RowCommitments
 from ..curve.g1 import G1Jac
 from ..models.mlp import MLPProof
 from ..models.zkfc import ZkFCProof
-from ..models.zkrelu import ZkReluProof
+from ..models.zkrelu import AuxCommitments, ZkReluProof
 from ..utils.runtime import resolve_device
 
-_CLASSES = {c.__qualname__: c for c in (MLPProof, ZkFCProof, ZkReluProof, OpeningProof, G1Jac)}
+_CLASSES = {c.__qualname__: c for c in (MLPProof, ZkFCProof, ZkReluProof, OpeningProof, G1Jac, AuxCommitments,
+                                         RowCommitments, FoldOpening)}
 _PACKAGES = ("zkdl_tpu", "zkdl_tpu_torch")
 
 

@@ -2,9 +2,9 @@
 
 Counterpart of ``zkdl_tpu/models/mlp.py``: ``absorb_statement`` (:38-49),
 ``MLP.from_float_weights``/``infer``/``prove`` (:57-163, planar path,
-chained by default, grouped or round-interleaved Fiat-Shamir), ``MLP.verify``
-with its Fiat-Shamir replay of either schedule (:165-355), ``MLPProof`` and
-``prove_timed`` (:378-388).
+chained by default, grouped or round-interleaved Fiat-Shamir, optionally
+the committed-aux tier), ``MLP.verify`` with its Fiat-Shamir replay of
+either schedule (:165-355), ``MLPProof`` and ``prove_timed`` (:378-388).
 """
 
 from __future__ import annotations
@@ -24,11 +24,6 @@ from ..tensor import fr_ops
 from ..utils import prng
 from ..utils.runtime import resolve_device
 from . import zkfc, zkrelu
-
-
-# The committed-aux tier is not ported: a prove or verify that asks for it
-# raises with this message.
-COMMIT_AUX_NOT_PORTED = "the committed-aux soundness tier is not ported (ROADMAP.md Queue A item 3)"
 
 
 def absorb_statement(challenges: ChallengeSource, layers, X, Y_hat) -> None:
@@ -96,7 +91,7 @@ class MLP:
 
     def prove(self, X, Y_hat, Z_list, A_list, aux_list, challenges: ChallengeSource | None = None,
               chain: bool = True, on_layer: Callable[[str, int], None] | None = None,
-              interleave: bool = False) -> "MLPProof":
+              interleave: bool = False, commit_aux: bool | None = None) -> "MLPProof":
         """Backwards proving loop: output FC first, then (relu_i, fc_i) down to
         layer 0. chain=True links every FC's output claim to the adjacent
         ReLU's sumchecks (GKR-style); chain=False gives independent per-layer
@@ -108,11 +103,15 @@ class MLP:
         drawn (one host round trip per round). Verify with
         MLP.verify(transcript=..., interleaved=True).
 
-        The committed-aux tier is not ported (ROADMAP.md Queue A item 3):
-        while config's commit_aux is set (ZKDL_COMMIT_AUX), prove raises
-        NotImplementedError."""
-        if config.get().commit_aux:
-            raise NotImplementedError(COMMIT_AUX_NOT_PORTED)
+        commit_aux=True (default: config's commit_aux, ZKDL_COMMIT_AUX) also
+        commits every ReLU's auxiliary bit tensors (sign, mag_bin, rem_bin)
+        over NUMS generators before that layer's draws, and opens them at
+        every point where the proof claims their evaluations (the committed-
+        aux tier; chained proofs only)."""
+        if commit_aux is None:
+            commit_aux = config.get().commit_aux
+        if commit_aux and not chain:
+            raise ValueError("committed aux requires chained mode")
         if challenges is None:
             challenges = FiatShamir()
         absorb_statement(challenges, self.layers, X, Y_hat)
@@ -127,8 +126,9 @@ class MLP:
             A_prev = A_list[i - 1] if i > 0 else X
             if chain:
                 w = torch.cat([fc_proofs[i + 1].u_in, fc_proofs[i + 1].u_bs], dim=0)
+                aux_com = zkrelu.commit_aux(aux_list[i]) if commit_aux else None
                 relu_proofs[i] = zkrelu.prove_planar(Z_list[i], aux_list[i], challenges, chain_point=w,
-                                                     interleave=interleave)
+                                                     aux_com=aux_com, interleave=interleave)
                 if on_layer:
                     on_layer("relu", i)
                 fc_proofs[i] = zkfc.prove_planar(self.layers[i], A_prev, Z_list[i], challenges,
@@ -162,16 +162,12 @@ class MLP:
         evaluation points are taken from the proof on trust. interleaved=True
         replays the round-interleaved schedule (MLP.prove(interleave=True)).
 
-        The checks are the JAX package's; the binding of each opening to
-        its layer's row commitments (a G1 fold over every row, the one heavy
-        step) runs after every other check, so a tampered proof is rejected
-        before it. A proof with one fault gets the JAX verifier's reason.
-
-        Committed-aux ReLU proofs (aux_coms set) are not ported (ROADMAP.md
-        Queue A item 3): they raise NotImplementedError, never pass
-        unchecked."""
-        if any(p.aux_coms is not None for p in proof.relu_proofs):
-            raise NotImplementedError(COMMIT_AUX_NOT_PORTED)
+        The checks are the JAX package's, with committed-aux ReLU proofs
+        (aux_coms set) checked by zkrelu.verify_committed where the JAX
+        verifier checks them, after the layer's sumchecks; the binding of
+        each FC opening to its layer's row commitments (a G1 fold over every
+        row) runs after every other check, so a tampered proof is rejected
+        before it. A proof with one fault gets the JAX verifier's reason."""
         n = len(self.layers)
         if transcript is not None:
             if X is None or Y_hat is None:
@@ -187,6 +183,10 @@ class MLP:
             ok, msg = zkrelu.verify(proof.relu_proofs[i])
             if not ok:
                 return False, f"relu[{i}]: {msg}"
+            if proof.relu_proofs[i].aux_coms is not None:
+                ok, msg = zkrelu.verify_committed(proof.relu_proofs[i])
+                if not ok:
+                    return False, f"relu[{i}] committed-aux: {msg}"
         chained = n >= 2 and proof.relu_proofs[0].a_polys is not None
         # The output anchor needs only the top FC's z-claim (chained or not);
         # the input anchor rides the claim chain, so an unchained proof with
@@ -235,7 +235,8 @@ class MLP:
         interleaved=True replays the round-interleaved schedule: every fold
         challenge is re-derived after absorbing its round's polynomial, so a
         prover that chose a round polynomial after seeing its fold challenge
-        is caught."""
+        is caught. A committed-aux layer's commitments are absorbed first and
+        its w_q, w_r re-derived after v_hp, in both schedules."""
 
         def draw_eq(stored) -> bool:
             got = transcript.random_vec(stored.shape[0])
@@ -283,7 +284,7 @@ class MLP:
             transcript.absorb_array(p.x_at_va)
             if not rounds_eq(p.hp_polys, p.v_hp):
                 return f"relu[{i}].v_hp not derived round-interleaved"
-            return None
+            return committed_draws(p, i)
 
         def fc_replay(i: int, draw_all: bool) -> str | None:
             p = proof.fc_proofs[i]
@@ -295,6 +296,13 @@ class MLP:
             transcript.absorb_array(p.z_claim)
             return None
 
+        def committed_draws(p, i: int) -> str | None:
+            if p.aux_coms is not None:
+                for name, stored in (("w_q", p.w_q), ("w_r", p.w_r)):
+                    if not draw_eq(stored):
+                        return f"relu[{i}].{name} not derived from the transcript"
+            return None
+
         def relu_replay(i: int) -> str | None:
             p = proof.relu_proofs[i]
             vecs = [("u_z_bin", p.u_z_bin), ("v_z_bin", p.v_z_bin), ("u_r_bin", p.u_r_bin),
@@ -302,6 +310,9 @@ class MLP:
             for name, stored in vecs:
                 if not draw_eq(stored):
                     return f"relu[{i}].{name} not derived from the transcript"
+            err = committed_draws(p, i)
+            if err:
+                return err
             transcript.absorb_array(p.mag_polys)
             transcript.absorb_array(p.rem_polys)
             transcript.absorb_array(p.hp_polys)
@@ -315,6 +326,8 @@ class MLP:
         if err:
             return False, err
         for i in range(n - 2, -1, -1):
+            if proof.relu_proofs[i].aux_coms is not None:
+                zkrelu._absorb_aux_coms(transcript, proof.relu_proofs[i].aux_coms)
             err = relu_replay(i) or fc_replay(i, draw_all=not chained)
             if err:
                 return False, err

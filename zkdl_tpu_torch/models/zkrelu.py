@@ -4,8 +4,12 @@ Counterpart of ``zkdl_tpu/models/zkrelu.py``: the width constants (:43-46),
 ``_width_consts``/``_split_mag`` (:81-118), ``forward_compact`` (:153-180),
 ``ZkReluProof`` (:258-306), ``_layout_body``/``_claims_body`` (:352-394),
 ``prove_planar`` in grouped and chained modes (:419-507) and its
-round-interleaved schedule ``_prove_planar_interleaved`` (:510-602), and the
-host verifiers ``verify`` (:739-773) and ``verify_chained`` (:605-647).
+round-interleaved schedule ``_prove_planar_interleaved`` (:510-602), the
+host verifiers ``verify`` (:739-773) and ``verify_chained`` (:605-647), and
+the committed-aux tier: ``AuxCommitments``, ``_expand_aux(_bits)``,
+``_aux_gens``, ``commit_aux``, ``_absorb_aux_coms`` (:183-254), the
+openings of both provers, ``_eq_weights`` (:651) and ``verify_committed``
+(:665-736).
 Per element of the pre-activation X (Montgomery Fr at scale 2^32),
 x = unmont(X) read as a signed 48-bit fixed-point value: positive iff
 x <= 2^47 - 1; mag is x or x + 2^47 (biased, negative); rem is a signed
@@ -19,9 +23,11 @@ from __future__ import annotations
 import dataclasses
 import functools
 
+import numpy as np
 import torch
 
 from .. import config
+from ..commit import pedersen
 from ..field import fr, host, mp, planar
 from ..sumcheck import planar_protocols as pp
 from ..sumcheck import protocols as sc
@@ -90,6 +96,64 @@ def forward_compact(X: torch.Tensor):
 
 
 @dataclasses.dataclass
+class AuxCommitments:
+    """Row commitments to a ReLU's auxiliary witnesses over NUMS generators
+    (zkrelu.py:AuxCommitments): sign (n,), mag_bin (n*Q,), rem_bin (n*R,)
+    bits, in the standard layout (bit k of element j at j*Q + k)."""
+
+    sign: pedersen.RowCommitments
+    mag: pedersen.RowCommitments
+    rem: pedersen.RowCommitments
+
+
+def _expand_aux_bits(sign_bits, mag, rem_bits16, q: int, r: int):
+    """Compact aux -> uint32 0/1 bit vectors in the standard layout: sign
+    (n,), mag_bin (n*q,) with bit k of element j at j*q + k, rem_bin (n*r,)
+    likewise (zkrelu.py:_expand_aux_bits)."""
+    dev = mag.device
+    mag_bits = (mp.i64(mag)[:, None] >> torch.arange(q, device=dev)) & 1
+    rem_bits = (mp.i64(rem_bits16)[:, None] >> torch.arange(r, device=dev)) & 1
+    return sign_bits, mp.u32(mag_bits.reshape(-1)), mp.u32(rem_bits.reshape(-1))
+
+
+def _mont_bits(bits: torch.Tensor) -> torch.Tensor:
+    """(N,) 0/1 uint32 -> (N, 8) Montgomery Fr: mont(1) where set, else 0."""
+    one = torch.from_numpy(fr.ONE_MONT.view(np.int32)).to(bits.device)
+    return torch.where((bits.view(torch.int32) != 0)[:, None], one, 0).view(torch.uint32)
+
+
+def _expand_aux(sign_bits, mag, rem_bits16, q: int, r: int):
+    """Compact aux -> standard-layout Montgomery tensors sign (n, 8),
+    mag_bin (n*q, 8), rem_bin (n*r, 8) (zkrelu.py:_expand_aux)."""
+    return tuple(_mont_bits(b) for b in _expand_aux_bits(sign_bits, mag, rem_bits16, q, r))
+
+
+def _aux_gens(size: int, device) -> pedersen.Generators:
+    """The NUMS vector of an aux tensor of `size` elements: sqrt-sized,
+    2^ceil(log2(size) / 2) (zkrelu.py:_aux_gens)."""
+    return pedersen.nums_generators(1 << ((fr_ops.ceil_log2(size) + 1) // 2), device)
+
+
+def commit_aux(aux: dict) -> AuxCommitments:
+    """Commit the compact auxiliary witnesses of forward_compact
+    (zkrelu.py:commit_aux): each bit tensor's rows as masked sums of NUMS
+    generators (pedersen.commit_bits, no scalar multiplication)."""
+    if Q != 1 << LOG_Q or R != 1 << LOG_R:
+        raise ValueError("committed aux needs 2^k widths")
+    sign_b, mag_b, rem_b = _expand_aux_bits(aux["sign_bits"], aux["mag"], aux["rem_bits16"], Q, R)
+    dev = sign_b.device
+    return AuxCommitments(*(pedersen.commit_bits(_aux_gens(b.shape[0], dev), b) for b in (sign_b, mag_b, rem_b)))
+
+
+def _absorb_aux_coms(challenges: ChallengeSource, coms: AuxCommitments) -> None:
+    """Absorb the commitments' Jacobian x, y, z before the layer's first draw."""
+    for c in (coms.sign, coms.mag, coms.rem):
+        challenges.absorb_array(c.points.x)
+        challenges.absorb_array(c.points.y)
+        challenges.absorb_array(c.points.z)
+
+
+@dataclasses.dataclass
 class ZkReluProof:
     # challenge vectors (recorded so the verifier in any challenge mode can replay)
     u_z_bin: torch.Tensor
@@ -115,16 +179,19 @@ class ZkReluProof:
     a_polys: torch.Tensor | None = None  # (log n, 3, 8)
     a_finals: torch.Tensor | None = None  # (2, 8): mont(mag)(v_a), sign(v_a)
     x_at_va: torch.Tensor | None = None  # (8,)
-    # committed-aux tier of the JAX package: not produced by this prover
-    aux_coms: object | None = None
+    # committed-aux tier (None otherwise): the aux commitments, the bit-axis
+    # combiners w_q (LOG_Q, 8) and w_r (LOG_R, 8), and the openings of
+    # mag_bin at v_z and at w_q || u_rec, rem_bin likewise, sign at v_hp and
+    # at u_rec (= v_a)
+    aux_coms: AuxCommitments | None = None
     w_q: torch.Tensor | None = None
     w_r: torch.Tensor | None = None
-    open_mag_bin: object | None = None
-    open_mag_rec: object | None = None
-    open_rem_bin: object | None = None
-    open_rem_rec: object | None = None
-    open_sign_hp: object | None = None
-    open_sign_rec: object | None = None
+    open_mag_bin: pedersen.FoldOpening | None = None
+    open_mag_rec: pedersen.FoldOpening | None = None
+    open_rem_bin: pedersen.FoldOpening | None = None
+    open_rem_rec: pedersen.FoldOpening | None = None
+    open_sign_hp: pedersen.FoldOpening | None = None
+    open_sign_rec: pedersen.FoldOpening | None = None
 
 
 def _layout_body(X, aux_mag, aux_rem, aux_sign, log_size, q, r):
@@ -178,8 +245,34 @@ def _check_chain_point(chain_point, n: int, log_size: int) -> None:
         raise ValueError("chained mode requires a power-of-two size")
 
 
+def _begin_committed(challenges: ChallengeSource, aux_com, chain_point) -> None:
+    """The committed tier's start: chained mode only; the commitments are
+    absorbed before any draw of the layer."""
+    if aux_com is not None:
+        if chain_point is None:
+            raise ValueError("committed aux requires chained mode")
+        _absorb_aux_coms(challenges, aux_com)
+
+
+def _open_aux(proof: ZkReluProof, n: int, aux: dict, aux_com: AuxCommitments, w_q, w_r) -> None:
+    """Attach the commitments, w_q, w_r and the six openings, in the JAX
+    order (zkrelu.py:prove_planar)."""
+    sign_m, mag_bin, rem_bin = _expand_aux(aux["sign_bits"], aux["mag"], aux["rem_bits16"], Q, R)
+    dev = sign_m.device
+    g_s, g_m, g_r = _aux_gens(n, dev), _aux_gens(n * Q, dev), _aux_gens(n * R, dev)
+    u_rec = mp.host(proof.u_recover)
+    proof.aux_coms = aux_com
+    proof.w_q, proof.w_r = w_q, w_r
+    proof.open_mag_bin = pedersen.open_reveal(g_m, mag_bin, aux_com.mag, proof.v_z_bin)
+    proof.open_mag_rec = pedersen.open_reveal(g_m, mag_bin, aux_com.mag, np.concatenate([mp.host(w_q), u_rec]))
+    proof.open_rem_bin = pedersen.open_reveal(g_r, rem_bin, aux_com.rem, proof.v_r_bin)
+    proof.open_rem_rec = pedersen.open_reveal(g_r, rem_bin, aux_com.rem, np.concatenate([mp.host(w_r), u_rec]))
+    proof.open_sign_hp = pedersen.open_reveal(g_s, sign_m, aux_com.sign, proof.v_hp)
+    proof.open_sign_rec = pedersen.open_reveal(g_s, sign_m, aux_com.sign, u_rec)
+
+
 def prove_planar(X: torch.Tensor, aux: dict, challenges: ChallengeSource, chain_point=None,
-                 interleave: bool = False) -> ZkReluProof:
+                 aux_com: AuxCommitments | None = None, interleave: bool = False) -> ZkReluProof:
     """Planar prover on compact aux. Draw order: u_z, v_z, u_r, v_r, u_rec,
     u_hp, v_hp (the stream of zkdl_tpu's prove_planar).
 
@@ -187,12 +280,17 @@ def prove_planar(X: torch.Tensor, aux: dict, challenges: ChallengeSource, chain_
     X-side point): also proves A = sign (.) mont(mag) with a Hadamard
     sumcheck anchored at w, whose fold point v_a is u_rec, and emits X(v_a).
 
+    Committed tier (aux_com = commit_aux(aux), chained mode only): the
+    commitments are absorbed before the first draw, w_q and w_r are drawn
+    after v_hp, and the proof carries six revealed-fold openings.
+
     interleave=True runs the round-interleaved Fiat-Shamir schedule
     (``_prove_planar_interleaved``)."""
     if interleave:
-        return _prove_planar_interleaved(X, aux, challenges, chain_point)
+        return _prove_planar_interleaved(X, aux, challenges, chain_point, aux_com)
     n = X.shape[0]
     log_size = fr_ops.ceil_log2(n)
+    _begin_committed(challenges, aux_com, chain_point)
     u_z = challenges.random_vec(log_size + LOG_Q)
     v_z = challenges.random_vec(log_size + LOG_Q)
     u_r = challenges.random_vec(log_size + LOG_R)
@@ -200,6 +298,8 @@ def prove_planar(X: torch.Tensor, aux: dict, challenges: ChallengeSource, chain_
     u_rec = challenges.random_vec(log_size)  # == v_a in chained mode
     u_hp = challenges.random_vec(log_size)
     v_hp = challenges.random_vec(log_size)
+    w_q = challenges.random_vec(LOG_Q) if aux_com is not None else None
+    w_r = challenges.random_vec(LOG_R) if aux_com is not None else None
 
     (mag_rev, rem_rev, X_rev, sign_rev, mag_mont_rev,
      mag_bits, rem_bits, Xp, sign) = _layout_body(
@@ -223,6 +323,8 @@ def prove_planar(X: torch.Tensor, aux: dict, challenges: ChallengeSource, chain_
         mag_at_u, rem_at_u, hp_claim,
         a_point, a_polys, a_finals, x_at_va,
     )
+    if aux_com is not None:
+        _open_aux(proof, n, aux, aux_com, w_q, w_r)
     challenges.absorb_array(mag_polys)
     challenges.absorb_array(rem_polys)
     challenges.absorb_array(hp_polys)
@@ -232,9 +334,10 @@ def prove_planar(X: torch.Tensor, aux: dict, challenges: ChallengeSource, chain_
 
 
 def _prove_planar_interleaved(X: torch.Tensor, aux: dict, challenges: ChallengeSource,
-                              chain_point) -> ZkReluProof:
+                              chain_point, aux_com: AuxCommitments | None) -> ZkReluProof:
     """The round-interleaved Fiat-Shamir schedule (zkrelu.py:510):
 
+      [absorb aux commitments]                     (committed tier)
       u_z <- draw ; mag binary sumcheck            (absorb poly_i, draw v_z[i])
       u_r <- draw ; rem binary sumcheck            (absorb poly_i, draw v_r[i])
       chained:   A-product sumcheck at chain_point (absorb poly_i, draw v_a[i]);
@@ -243,12 +346,14 @@ def _prove_planar_interleaved(X: torch.Tensor, aux: dict, challenges: ChallengeS
       u_hp <- draw
       absorb(mag_bits_at_u, rem_bits_at_u, hp_claim, X(u_rec))
       hp sumcheck of X (.) sign at u_hp            (absorb poly_i, draw v_hp[i])
+      [w_q, w_r <- draw]                           (committed tier)
 
     Every fold challenge is drawn after its round's polynomial is absorbed.
     X(u_rec) is stored as x_at_va in both modes: the replaying verifier
     absorbs it from the proof."""
     n = X.shape[0]
     log_size = fr_ops.ceil_log2(n)
+    _begin_committed(challenges, aux_com, chain_point)
     (mag_rev, rem_rev, X_rev, sign_rev, mag_mont_rev,
      mag_bits, rem_bits, Xp, sign) = _layout_body(
         X, aux["mag"], aux["rem_bits16"], aux["sign_bits"], log_size, Q, R)
@@ -273,12 +378,17 @@ def _prove_planar_interleaved(X: torch.Tensor, aux: dict, challenges: ChallengeS
     for claim in (mag_at_u, rem_at_u, hp_claim, x_at_u):
         challenges.absorb_array(claim)
     hp_polys, hp_finals, v_hp = pp.hadamard_prove_bits_interleaved(X_rev, sign_rev, u_hp, challenges)
-    return ZkReluProof(
+    w_q = challenges.random_vec(LOG_Q) if aux_com is not None else None
+    w_r = challenges.random_vec(LOG_R) if aux_com is not None else None
+    proof = ZkReluProof(
         u_z, v_z, u_r, v_r, u_rec, u_hp, v_hp,
         mag_polys, mag_final, rem_polys, rem_final, hp_polys, hp_finals,
         mag_at_u, rem_at_u, hp_claim,
         a_point, a_polys, a_finals, x_at_u,
     )
+    if aux_com is not None:
+        _open_aux(proof, n, aux, aux_com, w_q, w_r)
+    return proof
 
 
 def verify(proof: ZkReluProof) -> tuple[bool, str]:
@@ -332,4 +442,58 @@ def verify_chained(proof: ZkReluProof, a_claim: int) -> tuple[bool, str]:
     rhs = HF.add(HF.mul(HF.mont(1 << SCALE_OUT_BITS), fa), r_rec)
     if lhs != rhs:
         return False, "recombination identity failed at v_a"
+    return True, ""
+
+
+def _eq_weights(w: list[int], m: int) -> list[int]:
+    """eq(w, k) for k in range(m), Montgomery ints; w[0] binds the lowest
+    index bit (zkrelu.py:_eq_weights)."""
+    one = HF.one_mont
+    out = [one]
+    for wi in w:
+        out = [HF.mul(e, HF.sub(one, wi)) for e in out] + [HF.mul(e, wi) for e in out]
+    return out[:m]
+
+
+def verify_committed(proof: ZkReluProof) -> tuple[bool, str]:
+    """Committed-aux checks (zkrelu.py:verify_committed): every claim about
+    the auxiliary witnesses is an opening of a commitment absorbed before
+    the layer's draws: mag_bin at v_z (the binary sumcheck's final) and at
+    w_q || u_rec (the eq(w_q)-weighted recombination folds), rem_bin
+    likewise, sign at v_hp (the Hadamard final) and at u_rec = v_a (the
+    A-product final). Each opening is checked against the NUMS vector the
+    verifier regenerates; the six share their group math
+    (pedersen.verify_reveals) and the first failing one, in this order,
+    gives the reason."""
+    if proof.aux_coms is None:
+        return False, "proof has no aux commitments"
+    if proof.a_polys is None:
+        return False, "committed aux requires a chained proof"
+    ints = sc.scalars_to_ints
+    coms = proof.aux_coms
+    u_rec = ints(proof.u_recover)
+
+    def folded(w, claims, m):
+        expect = 0
+        for e, b in zip(_eq_weights(w, m), ints(claims)):
+            expect = HF.add(expect, HF.mul(e, b))
+        return expect
+
+    w_q, w_r = ints(proof.w_q), ints(proof.w_r)
+    checks = [
+        ("mag_bin@v_z", proof.open_mag_bin, coms.mag, ints(proof.v_z_bin), ints(proof.mag_final)[0]),
+        ("rem_bin@v_r", proof.open_rem_bin, coms.rem, ints(proof.v_r_bin), ints(proof.rem_final)[0]),
+        ("mag_bin@w||u_rec", proof.open_mag_rec, coms.mag, w_q + u_rec, folded(w_q, proof.mag_bits_at_u, Q)),
+        ("rem_bin@w||u_rec", proof.open_rem_rec, coms.rem, w_r + u_rec, folded(w_r, proof.rem_bits_at_u, R)),
+        ("sign@v_hp", proof.open_sign_hp, coms.sign, ints(proof.v_hp), ints(proof.hp_finals)[1]),
+        ("sign@v_a", proof.open_sign_rec, coms.sign, u_rec, ints(proof.a_finals)[1]),
+    ]
+    dev = coms.sign.points.x.device
+    results = pedersen.verify_reveals([
+        (opening, pedersen.nums_generators(1 << ((len(point) + 1) // 2), dev), com, point, expected)
+        for _, opening, com, point, expected in checks
+    ])
+    for (what, *_), (ok, msg) in zip(checks, results):
+        if not ok:
+            return False, f"{what}: {msg}"
     return True, ""

@@ -10,7 +10,7 @@ one profiled run: its wall time, the device time (kernels and copies summed;
 one stream, so they never overlap), the device's busy share over the span
 from the first kernel's start to the last kernel's end and over the run's
 wall, the count of kernel launches, and device time by kernel: the 20
-largest, and the hand-written kernels (K1-K4) apart from PyTorch's own
+largest, and the hand-written kernels (K1-K6) apart from PyTorch's own
 wherever they rank. The profiler slows the
 host, not the kernels, so the busy share under it is a lower bound of the
 unprofiled one. The unprofiled steady wall of bench.run is printed beside it
@@ -35,6 +35,8 @@ OURS = {
     "fr_mul_scalar_kernel": "K2 fr_mul_scalar",
     "fr_dot_kernel": "K3 fr_dot",
     "g1_comb_kernel": "K4 g1_comb",
+    "g1_scalar_mul_kernel": "K5 g1_scalar_mul",
+    "g1_add_kernel": "K6 g1_add",
 }
 
 
@@ -56,7 +58,7 @@ def main(argv=None) -> None:
     torch.cuda.synchronize(dev)
     with profiling.trace(args.trace) as prof:
         t0 = time.perf_counter()
-        model.prove(X, Y, Z, A, aux, interleave=res["interleave"])
+        model.prove(X, Y, Z, A, aux, interleave=res["interleave"], commit_aux=res["commit_aux"])
         torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
     groups: dict[str, list] = {}

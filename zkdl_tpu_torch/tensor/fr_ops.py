@@ -1,5 +1,7 @@
-"""Shape helpers, keyed draws and the MLE evaluation of
-``zkdl_tpu/tensor/fr_ops.py`` (``random_fr`` :129, ``random_int`` :140)."""
+"""Shape helpers, keyed draws and the MLE evaluations of
+``zkdl_tpu/tensor/fr_ops.py`` (``me_step``/``me_eval`` :69-92,
+``partial_me_step``/``partial_me`` :95-126, ``random_fr`` :129,
+``random_int`` :140)."""
 
 from __future__ import annotations
 
@@ -79,3 +81,39 @@ def me_eval(t: torch.Tensor, u) -> torch.Tensor:
     for i in range(r):
         tp = _me_step_planar(tp, u[i])
     return tp[:, 0].contiguous()
+
+
+def _partial_me_step_planar(tp: torch.Tensor, x, window: int) -> torch.Tensor:
+    """One windowed fold of planar (8, n): windows 2w and 2w + 1 (of `window`
+    columns each) become a0 + x*(a1 - a0), a short tail zero-padded. The
+    product by the host scalar x is K2."""
+    n = tp.shape[1]
+    nw = (n + 2 * window - 1) // (2 * window)
+    if n < nw * 2 * window:
+        tp = torch.cat([tp, torch.zeros((8, nw * 2 * window - n), dtype=tp.dtype, device=tp.device)], dim=1)
+    tw = tp.reshape(8, nw, 2, window)
+    a0, a1 = tw[:, :, 0], tw[:, :, 1]
+    return planar.add(a0, planar.mul_scalar(planar.sub(a1, a0), x)).reshape(8, nw * window)
+
+
+def partial_me_step(t: torch.Tensor, x, window: int) -> torch.Tensor:
+    """Windowed fold of (n, 8) Montgomery t by the host scalar x (8,): pairs
+    windows of `window` rows, keeping the inner window axis
+    (fr_ops.py:partial_me_step)."""
+    tp = planar.to_planar(t).contiguous()
+    return planar.from_planar(_partial_me_step_planar(tp, mp.host(x), window)).contiguous()
+
+
+def partial_me(t: torch.Tensor, u, window: int) -> torch.Tensor:
+    """Fold the outer axis of (n, 8) Montgomery t along every challenge of
+    u ((r, 8) Montgomery, any device; u[0] first), windows of `window` rows
+    (fr_ops.py:partial_me); on the planar layout, one K2 fold a level.
+    Requires n > window * 2^(r-1)."""
+    u = mp.host(u)
+    n, r = t.shape[0], u.shape[0]
+    if r == 0 or not n > window * (1 << (r - 1)):
+        raise ValueError(f"partial_me: {n} rows, window {window}, {r} challenges")
+    tp = planar.to_planar(t).contiguous()
+    for i in range(r):
+        tp = _partial_me_step_planar(tp, u[i], window)
+    return planar.from_planar(tp).contiguous()
