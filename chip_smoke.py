@@ -4,10 +4,13 @@ builds and runs.
 
     python3 chip_smoke.py           # every phase
     python3 chip_smoke.py --comb    # phase 1 and K4's times only
-    python3 chip_smoke.py --var     # phase 1 and K5/K6 against plain, K5's times
+    python3 chip_smoke.py --var     # phase 1, K5/K6 against plain, and their times
+    python3 chip_smoke.py --var-times   # K4, K5 and K6 times only, at the verify's and the
+                                        # commitments' shapes on seeded data
 
-`--comb` times K4 on the same seeded scalars in any checkout of the port it
-is copied into, so that two versions can be compared in one call.
+`--comb` and `--var-times` time K4 (and K5, K6) on the same seeded inputs in
+any checkout of the port they are copied into, so that two versions can be
+compared in one call.
 
 Phases (each prints its own lines; any failure exits nonzero):
   1. the card's name and power limit, the host CPU's model; build of every
@@ -23,9 +26,13 @@ Phases (each prints its own lines; any failure exits nonzero):
      scalars below r, drawn as setup draws them; K5 (variable-base scalar
      multiplication) and K6 (point addition) on the edge points and scalars
      (O + O, p + p, p + (-p) and its (r^2, -r^3, 0), the scalars 0, 1, r - 1,
-     the cofactor, 2^256 - 1) at 1 to 4096 points, K6 also on strided
-     halves, with q negated and in bit mode, and K5 timed at a NUMS clearing
-     (4096 points x the cofactor, one scalar for all)
+     the cofactor, 2^256 - 1, r and 2^256 - r) at 1 to 4097 points, K5 in
+     each of its layouts, K6 also on strided halves, with q negated and in
+     bit mode; K5 timed at a NUMS clearing (4096 points x the cofactor, one
+     scalar for all), at the verify's MSM and first fold level (18,432 and
+     6,656 seeded points, random scalars below r), K6 at a mag_bin
+     commitment's first two levels (2^23 and 2^22 pairs, bits drawn at a
+     real commitment's set-bit share)
   3. a small model proved on the card and on the CPU (plain versions): every
      proof array identical, unchained SeededRng and chained Fiat-Shamir; the
      card's proof accepted by the port's verifier on the card and, moved to
@@ -57,8 +64,11 @@ Phases (each prints its own lines; any failure exits nonzero):
      plain; K5 held against plain and timed at the verify's own launches
      (relu[1]'s generator MSM, 18,432 points, and the first level of its
      row commitments' MLE fold, 6,656 points, a scalar per point); K6 timed
-     at a mag_bin commitment's first (bit mode) and second levels;
-     committed and ordinary proves alternately; an interleaved
+     at a mag_bin commitment's first (bit mode) and second levels, with the
+     set-bit share of its bits and the lane use of one thread a pair against
+     K6's per-block list; K5's device time in one committed verify and K6's
+     in one committed prove (torch.profiler) beside the sums of their
+     bounds; committed and ordinary proves alternately; an interleaved
      committed proof verified; four tampered copies rejected with the JAX
      verifier's reasons is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -93,8 +103,20 @@ FP_LEVELS_PER_WINDOW = 5  # add_mixed's levels of dependent products (K4 runs ea
 G1_ADD_IMAD = 11 * FP_MUL_IMAD + 5 * FP_SQR_IMAD  # add-2007-bl, generic case (K5, K6)
 G1_DBL_IMAD = 2 * FP_MUL_IMAD + 5 * FP_SQR_IMAD  # dbl-2009-l (K5)
 G1_COFACTOR = 0x396C8C005555E1568C00AAAB0000AAAB  # the NUMS generators' cofactor clearing (K5)
-VAR_SIZES = (1, 2, 3, 255, 256, 257, 4096)
-NUMS_SIZE = 4096  # the largest NUMS vector of zkdl256's committed tier (mag_bin and rem_bin of a 2^19 ReLU)  # K5/K6 launch sizes held against plain: one block, tails, a NUMS vector
+# K5/K6 launch sizes held against plain: one block or warp, partial warps
+# (K5's layouts hold 1, 4 or 16 points a warp), tails, a NUMS vector, K6's
+# largest tile (4096 pairs) and one more
+VAR_SIZES = (1, 2, 3, 5, 255, 256, 257, 4096, 4097)
+NUMS_SIZE = 4096  # the largest NUMS vector of zkdl256's committed tier (mag_bin and rem_bin of a 2^19 ReLU)
+# --var's seeded shapes: relu[1]'s verify launches K5 at its six openings'
+# generator MSM (18,432 points) and then at its row commitments' first fold
+# level (6,656 points); a 2^19-element layer's mag_bin commitment is 2^24
+# bits over 4096 generators, whose tree starts with 2^23 pairs in bit mode
+VAR_MSM_POINTS, VAR_FOLD_POINTS = 18432, 6656
+MAG_BITS, MAG_GEN = 1 << 24, 4096
+# the share of set bits of relu[1]'s mag_bin bits in the zkdl256 committed
+# proof (phase 6 prints it: "mag_bin bits set")
+MAG_SET_SHARE = 0.41775
 Y_HAT_TOL = 1e-4  # zkdl256 Y_hat vs the float64 forward (see phase_zkdl256)
 JAX_BUILD = os.path.join("tests", "port", "fixtures", "zkdl256_jax_build.json")
 # Two faults of an interleaved proof (the low bit of one word flipped) and
@@ -406,10 +428,11 @@ def phase_var(dev, records: dict) -> None:
     """K5 and K6 against their plain versions on the card, bit for bit: the
     edge inputs (K6: O + O, O + q, p + O, p + p, p + (-p) and the resulting
     (r^2, -r^3, 0) as either operand, random pairs; K5: the scalars 0, 1,
-    r - 1, the cofactor and 2^256 - 1 on the generator, a NUMS candidate,
-    the identity and (r^2, -r^3, 0)) at the head of every size of
-    VAR_SIZES; K6 also on strided halves, with q negated (me_step) and in
-    bit mode; K5 also with one scalar for all points. Then K5 timed beside
+    r - 1, the cofactor, 2^256 - 1, r and 2^256 - r on the generator, a
+    NUMS candidate, the identity and (r^2, -r^3, 0)) at the head of every
+    size of VAR_SIZES; K6 also on strided halves, with q negated (me_step)
+    and in bit mode; K5 in each layout, also with one scalar for all
+    points. Then K5 timed beside
     its bound at 4096 NUMS candidates x the cofactor (the clearing of
     nums_generators(4096), the one launch with one scalar for all points);
     phase 6 times it at the verify's launches."""
@@ -458,9 +481,11 @@ def phase_var(dev, records: dict) -> None:
         "O + q, p + O, p + p (double), p + (-p) (gives (r^2, -r^3, 0)), that point as either operand and "
         f"alone, G + a NUMS candidate; on strided halves, with q negated, and in bit mode (gen 2, 64, {n})")
 
-    # K5: every edge scalar on every edge point at the head, random after
+    # K5: every edge scalar on every edge point at the head, random after;
+    # r runs the generic formula to z = 0 at G's bit 254 (out = -acc there)
+    # and 2^256 - r adds equal points at G's bit 255 (double)
     top = (1 << 256) - 1
-    edge_scalars = [0, 1, fr.P_INT - 1, G1_COFACTOR, top]
+    edge_scalars = [0, 1, fr.P_INT - 1, G1_COFACTOR, top, fr.P_INT, (1 << 256) - fr.P_INT]
     edge_points = [G, cand, O, C]
     pe = _cat_points(*[pt for pt in edge_points for _ in edge_scalars])
     se = torch.stack([scalar_words(x) for _ in edge_points for x in edge_scalars]).to(dev)
@@ -468,21 +493,100 @@ def phase_var(dev, records: dict) -> None:
     pts = _cat_points(pe, _points(R, torch.arange(n - k, device=dev)))
     sc = torch.cat([se, torch.from_numpy(raw[n: 2 * n - k]).to(dev)])
     want = g1.scalar_mul_plain(pts, sc)
-    for m in VAR_SIZES:
-        idx = torch.arange(m, device=dev)
-        same_points(f"g1_scalar_mul n={m}", g1.scalar_mul(_points(pts, idx), sc[:m]), _points(want, idx))
     part = _points(pts, torch.arange(VAR_SIZES[-2], device=dev))
-    for x in edge_scalars:
-        s1 = scalar_words(x).to(dev)
-        same_points(f"g1_scalar_mul one scalar {x:#x} n={VAR_SIZES[-2]}", g1.scalar_mul(part, s1),
-                    g1.scalar_mul_plain(part, s1))
-    log(f"[kernels] g1_scalar_mul bit-equal to plain at n = {', '.join(map(str, VAR_SIZES))}, each set headed by the "
-        "scalars 0, 1, r-1, the cofactor and 2^256-1 on G, a NUMS candidate, O and (r^2, -r^3, 0); one scalar "
-        f"for all {VAR_SIZES[-2]} points, each of those scalars")
+    one = {x: g1.scalar_mul_plain(part, scalar_words(x).to(dev)) for x in edge_scalars}
+    for form in g1.SCALAR_MUL_FORMS:
+        for m in VAR_SIZES:
+            idx = torch.arange(m, device=dev)
+            same_points(f"g1_scalar_mul ({form}) n={m}", g1.scalar_mul(_points(pts, idx), sc[:m], form),
+                        _points(want, idx))
+        for x, want_one in one.items():
+            same_points(f"g1_scalar_mul ({form}) one scalar {x:#x} n={VAR_SIZES[-2]}",
+                        g1.scalar_mul(part, scalar_words(x).to(dev), form), want_one)
+    log(f"[kernels] g1_scalar_mul bit-equal to plain in each layout ({', '.join(g1.SCALAR_MUL_FORMS)}) at n = "
+        f"{', '.join(map(str, VAR_SIZES))}, each set headed by the scalars 0, 1, r-1, the cofactor, 2^256-1, r and "
+        f"2^256-r on G, a NUMS candidate, O and (r^2, -r^3, 0); one scalar for all {VAR_SIZES[-2]} points, each of "
+        "those scalars")
 
     # K5 at the NUMS clearing of nums_generators(NUMS_SIZE)
     cands = convert.jac_to_device([host_g1.JacPoint(x, y, 1) for _, x, y in pedersen._nums_affine(NUMS_SIZE)], dev)
     time_scalar_mul(records, f"{NUMS_SIZE} NUMS candidates x the cofactor", cands, scalar_words(G1_COFACTOR).to(dev))
+
+
+def var_time_sets(dev) -> dict:
+    """--var-times' seeded inputs: K5 at a NUMS clearing (NUMS_SIZE
+    candidates x the cofactor), at the verify's MSM and first fold level
+    (VAR_MSM_POINTS and VAR_FOLD_POINTS points from K4 on seeded scalars,
+    each by a random scalar below r) and at the fold's levels as the verify
+    runs them (VAR_FOLD_POINTS points down to 6, six challenges each on a
+    sixth of the points); K6 at a mag_bin commitment's first level
+    (MAG_BITS bits at MAG_SET_SHARE over MAG_GEN seeded generators, bit
+    mode) and second (the strided halves of the first's sums). Only APIs
+    that every version of the port since K6 has."""
+    import torch
+    from zkdl_tpu_torch.commit import pedersen
+    from zkdl_tpu_torch.curve import convert, g1, host_g1
+    from zkdl_tpu_torch.field import fr
+
+    rng = np.random.default_rng(12)
+
+    def below_r(m):
+        raw = rng.integers(0, 1 << 32, size=(m, 8), dtype=np.uint32)
+        raw[:, 7] %= np.uint32(fr.P_TOP_LIMB)
+        return torch.from_numpy(raw).to(dev)
+
+    pts = g1.generator_pow(below_r(VAR_MSM_POINTS))
+    cands = convert.jac_to_device([host_g1.JacPoint(x, y, 1) for _, x, y in pedersen._nums_affine(NUMS_SIZE)], dev)
+    k5 = {
+        f"{NUMS_SIZE} NUMS candidates x the cofactor": (cands, scalar_words(G1_COFACTOR).to(dev)),
+        f"the verify's generator MSM shape ({VAR_MSM_POINTS} points, random scalars below r)":
+            (pts, below_r(VAR_MSM_POINTS)),
+        f"the verify's first fold level shape ({VAR_FOLD_POINTS} points, random scalars below r)":
+            (_points(pts, torch.arange(VAR_FOLD_POINTS, device=dev)), below_r(VAR_FOLD_POINTS)),
+    }
+    # the fold's levels as the verify runs them: six vectors side by side,
+    # each point by its vector's challenge (me_step)
+    m = VAR_FOLD_POINTS
+    while m >= 6:
+        idx = torch.arange(m, device=dev)
+        k5[f"a fold level of {m} points (six challenges, each on a sixth)"] = (
+            _points(pts, idx), below_r(6).repeat_interleave(-(-m // 6), 0)[:m].contiguous())
+        m //= 4
+    gens = g1.generator_pow(below_r(MAG_GEN))
+    bits = torch.from_numpy((rng.random(MAG_BITS) < MAG_SET_SHARE).astype(np.uint32)).to(dev)
+    first = g1.add_bits(bits, gens)
+    halves = (g1.G1Jac(*(c[0::2] for c in first)), g1.G1Jac(*(c[1::2] for c in first)))
+    k6 = {
+        f"mag_bin level 1 shape, bit mode ({MAG_BITS // 2} pairs over {MAG_GEN} generators, "
+        f"{MAG_SET_SHARE:g} of the bits set)": ("bits", bits, gens),
+        f"mag_bin level 2 shape ({MAG_BITS // 4} pairs, strided halves)": ("add", *halves),
+    }
+    return {"g1_scalar_mul": k5, "g1_add": k6}
+
+
+def phase_var_times(dev, sets: dict | None = None) -> dict:
+    """K5 and K6 timed (CUDA events, 10 launches) on var_time_sets beside
+    their bounds; K5 also in each layout where the port has them."""
+    from zkdl_tpu_torch.curve import g1
+
+    sets = sets or var_time_sets(dev)
+    out = {"g1_scalar_mul": {}, "g1_add": {}}
+    forms = list(getattr(g1, "SCALAR_MUL_FORMS", {"auto": 0}))
+    for label, (pts, scal) in sets["g1_scalar_mul"].items():
+        bms, by = var_bound(pts, scal)
+        rec = out["g1_scalar_mul"][label] = {"bound_ms": bms, "bound_by": by}
+        for form in forms:
+            fn = (lambda: g1.scalar_mul(pts, scal)) if form == "auto" else (lambda: g1.scalar_mul(pts, scal, form))
+            rec["ms" if form == "auto" else f"ms_{form}"] = ms = cuda_ms(fn, 10)
+            log(f"[var] g1_scalar_mul ({form}) at {label}: {ms:.4f} ms (bound {bms:.6f} ms by {by}, "
+                f"{100 * bms / ms:.2f}% of it)")
+    for label, (kind, a, b) in sets["g1_add"].items():
+        fn = (lambda: g1.add_bits(a, b)) if kind == "bits" else (lambda: g1.add(a, b))
+        bms, by = add_bits_bound(a, b.x.shape[0]) if kind == "bits" else add_bound(a, b)
+        ms = cuda_ms(fn, 10)
+        out["g1_add"][label] = {"ms": ms, "bound_ms": bms, "bound_by": by}
+        log(f"[var] g1_add at {label}: {ms:.4f} ms (bound {bms:.6f} ms by {by}, {100 * bms / ms:.2f}% of it)")
+    return out
 
 
 def plain_once(fn):
@@ -505,15 +609,17 @@ def time_scalar_mul(records: dict, label: str, pts, scal) -> None:
     from zkdl_tpu_torch.curve import g1
 
     want, pms = plain_once(lambda: g1.scalar_mul_plain(pts, scal))
-    err = point_err(g1.scalar_mul(pts, scal), want)
+    err = max(point_err(g1.scalar_mul(pts, scal, form), want) for form in g1.SCALAR_MUL_FORMS)
     if err:
         raise AssertionError(f"g1_scalar_mul differs from plain at {label}: {err}")
-    ms = cuda_ms(lambda: g1.scalar_mul(pts, scal), 10)
+    ms = {form: cuda_ms(lambda f=form: g1.scalar_mul(pts, scal, f), 10) for form in g1.SCALAR_MUL_FORMS}
     bms, by = var_bound(pts, scal)
     records.setdefault("_g1_scalar_mul_shapes", {})[label] = {
-        "ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by, "max_abs_err": err}
-    log(f"[kernels] g1_scalar_mul at {label}: bit-equal to plain; {ms:.4f} ms (plain {pms:.1f} ms, bound "
-        f"{bms:.6f} ms by {by}, {100 * bms / ms:.2f}% of it; one thread a point)")
+        "ms": ms["auto"], **{f"ms_{f}": t for f, t in ms.items() if f != "auto"}, "plain_ms": pms,
+        "bound_ms": bms, "bound_by": by, "max_abs_err": err}
+    log(f"[kernels] g1_scalar_mul at {label}: bit-equal to plain in every layout; {ms['auto']:.4f} ms (layouts: "
+        f"{', '.join(f'{f} {t:.4f}' for f, t in ms.items() if f != 'auto')}; plain {pms:.1f} ms, bound "
+        f"{bms:.6f} ms by {by}, {100 * bms / ms['auto']:.2f}% of it)")
 
 
 def phase_kernels(records: dict) -> None:
@@ -870,6 +976,7 @@ def time_commit_levels(res: dict, records: dict) -> None:
     4096 generators): its first level in bit mode (2^12 rows x 2^11 pairs)
     and its second level (strided halves of the first's sums), each beside
     its bound and the plain version, on this run's bits."""
+    import torch
     from zkdl_tpu_torch.curve import g1
     from zkdl_tpu_torch.models import zkrelu
 
@@ -878,6 +985,11 @@ def time_commit_levels(res: dict, records: dict) -> None:
                                           zkrelu.Q, zkrelu.R)
     g_m = zkrelu._aux_gens(mag_b.shape[0], res["X"].device).points
     gen = g_m.x.shape[0]
+    set_bits = mag_b.view(torch.int32) != 0
+    share = float(set_bits.to(torch.float64).mean().item())
+    both = set_bits.reshape(-1, 2).all(1)  # a generic pair: two NUMS generators (never the identity)
+    log(f"[committed] relu[1] mag_bin bits set: {share:.6f} of {mag_b.shape[0]}; generic pairs at level 1: "
+        f"{float(both.to(torch.float64).mean().item()):.6f}")
     first = g1.add_bits(mag_b, g_m)
     first_plain = g1.add_bits_plain(mag_b, g_m)
     halves = (g1.G1Jac(*(c[0::2] for c in first)), g1.G1Jac(*(c[1::2] for c in first)))
@@ -889,16 +1001,92 @@ def time_commit_levels(res: dict, records: dict) -> None:
         f"mag_bin level 2 ({mag_b.shape[0] // gen} rows x {gen // 4} pairs, strided halves)":
             (lambda: g1.add(*halves), lambda: g1.add_plain(*halves), add_bound(*halves)),
     }
+    generic = {next(iter(levels)): both, list(levels)[1]: ~g1.is_identity(halves[0]) & ~g1.is_identity(halves[1])}
     for label, (kfn, pfn, (bms, by)) in levels.items():
         ms, pms = cuda_ms(kfn, 10), cuda_ms(pfn, 1)
-        shapes[label] = {"ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by}
+        per_thread, per_list = lane_use(generic[label])
+        shapes[label] = {"ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+                         "lane_use_thread_a_pair": per_thread, "lane_use_block_list": per_list}
         log(f"[kernels] g1_add at {label}: {ms:.4f} ms (plain {pms:.1f} ms, bound {bms:.6f} ms by {by}, "
-            f"{100 * bms / ms:.2f}% of it; one thread a pair)")
+            f"{100 * bms / ms:.2f}% of it); generic-add lanes over the lanes of the warps that run a generic add: "
+            f"{per_thread:.4f} with one thread a pair, {per_list:.4f} with K6's per-block list")
     if err:
         raise AssertionError(f"g1_add differs from plain at a zkdl256 commitment's shapes: {err}")
     log("[kernels] g1_add bit-equal to plain at both levels")
     first_label = next(iter(levels))
     records["g1_add"] = {**shapes[first_label], "max_abs_err": err, "library_ms": None}
+
+
+def lane_use(generic) -> tuple[float, float]:
+    """Of the lanes of the warps that run a generic add, the share that run
+    one, for the (n,) bool pairs: with one thread a pair (warps of 32
+    consecutive pairs, the one-thread K6) and with K6's per-block list
+    (tiles of 4096 pairs, as K6 takes them at a commitment's first levels,
+    each tile's generic pairs in passes of 128 threads; a pass's last warp
+    runs only its listed lanes)."""
+    import torch
+
+    g = generic.to(torch.int64)
+    total = int(g.sum().item())
+    if total == 0:
+        return 1.0, 1.0
+    by_warp = torch.nn.functional.pad(g, (0, (-g.shape[0]) % 32)).reshape(-1, 32).sum(1)
+    thread_lanes = 32 * int((by_warp > 0).sum().item())
+    by_tile = torch.nn.functional.pad(g, (0, (-g.shape[0]) % 4096)).reshape(-1, 4096).sum(1)
+    list_lanes = 32 * int((4 * (by_tile // 128) + (by_tile % 128 + 31) // 32).sum().item())
+    return total / thread_lanes, total / list_lanes
+
+
+def profile_committed(res: dict, records: dict) -> None:
+    """K5's device time in one committed verify and K6's in one committed
+    prove (torch.profiler, summed over the kernels' launches), beside the
+    sums of the launches' bounds (var_bound, add_bound, add_bits_bound on
+    each launch's own inputs, recorded while it runs)."""
+    import torch
+    from zkdl_tpu_torch.curve import g1
+    from zkdl_tpu_torch.models import mlp
+    from zkdl_tpu_torch.profile_prove import device_time
+    from zkdl_tpu_torch.sumcheck.transcript import FiatShamir
+    from zkdl_tpu_torch.utils import profiling
+
+    bounds = {"K5 g1_scalar_mul": 0.0, "K6 g1_add": 0.0}
+    smul, add_, bits_ = g1.scalar_mul, g1._add, g1.add_bits
+
+    def scalar_mul(p, scal, form="auto"):
+        flat = g1.G1Jac(*(c.reshape(-1, 12) for c in p))
+        bounds["K5 g1_scalar_mul"] += var_bound(flat, scal if scal.dim() == 1 else scal.reshape(-1, 8))[0]
+        return smul(p, scal, form)
+
+    def _add(p, q, neg_q):
+        bounds["K6 g1_add"] += add_bound(*(g1.G1Jac(*(c.reshape(-1, 12) for c in x)) for x in (p, q)))[0]
+        return add_(p, q, neg_q)
+
+    def add_bits(bits, gens):
+        bounds["K6 g1_add"] += add_bits_bound(bits, gens.x.reshape(-1, 12).shape[0])[0]
+        return bits_(bits, gens)
+
+    model, X, Y = res["model"], res["X"], res["Y_hat"]
+    out = {}
+    g1.scalar_mul, g1._add, g1.add_bits = scalar_mul, _add, add_bits
+    try:
+        for what, fn in (("verify", lambda: model.verify(res["proof"], X=X, Y_hat=Y, transcript=FiatShamir())),
+                         ("prove", lambda: mlp.prove_timed(model, X, res["batch"], commit_aux=True))):
+            for k in bounds:
+                bounds[k] = 0.0
+            torch.cuda.synchronize()
+            with profiling.trace() as prof:
+                fn()
+                torch.cuda.synchronize()
+            groups, _, _ = device_time(prof)
+            out[what] = {k: {"device_ms": 1e3 * groups.get(k, [0.0, 0])[0], "launches": groups.get(k, [0.0, 0])[1],
+                             "bound_ms": bounds[k]} for k in bounds}
+    finally:
+        g1.scalar_mul, g1._add, g1.add_bits = smul, add_, bits_
+    for what, ks in out.items():
+        log(f"[committed] device time of K5 and K6 in one committed {what} (torch.profiler): " + "; ".join(
+            f"{k} {v['device_ms']:.3f} ms over {v['launches']} launches, bound sum {v['bound_ms']:.3f} ms"
+            for k, v in ks.items()))
+    records["_committed_device"] = out
 
 
 OPENINGS = ("open_mag_bin", "open_rem_bin", "open_mag_rec", "open_rem_rec", "open_sign_hp", "open_sign_rec")
@@ -913,6 +1101,7 @@ def time_verify_scalar_muls(res: dict, records: dict) -> None:
     difference point by its vector's challenge); both a scalar per point,
     held against plain and timed. The MSM is K5's record in the kernels'
     line."""
+    import torch
     from zkdl_tpu_torch.curve import g1
     from zkdl_tpu_torch.models import zkrelu
     from zkdl_tpu_torch.tensor import fr_ops
@@ -947,6 +1136,17 @@ def time_verify_scalar_muls(res: dict, records: dict) -> None:
     shapes = records["_g1_scalar_mul_shapes"]
     records["g1_scalar_mul"] = {**{k: v for k, v in shapes[msm].items() if k != "max_abs_err"},
                                 "max_abs_err": max(v["max_abs_err"] for v in shapes.values()), "library_ms": None}
+    # every launch of the verify in every layout, each layout bit-equal to
+    # the first (the two largest are held against plain above)
+    sweep = records["_g1_scalar_mul_verify_launches"] = {}
+    for p, scal in calls:
+        outs = {form: torch.cat(list(g1.scalar_mul(p, scal, form))) for form in g1.SCALAR_MUL_FORMS}
+        ref = next(iter(outs.values()))
+        if any(not torch.equal(o, ref) for o in outs.values()):
+            raise AssertionError(f"g1_scalar_mul's layouts disagree at {p.x.shape[0]} points")
+        sweep[p.x.shape[0]] = {form: cuda_ms(lambda f=form: g1.scalar_mul(p, scal, f), 5) for form in outs}
+        log(f"[committed] relu[1]'s verify, K5 at {p.x.shape[0]} points: " +
+            ", ".join(f"{f} {t:.4f} ms" for f, t in sweep[p.x.shape[0]].items()))
 
 
 def phase_committed(records: dict, ordinary: dict, pairs: int = 3) -> dict:
@@ -987,6 +1187,7 @@ def phase_committed(records: dict, ordinary: dict, pairs: int = 3) -> dict:
     check_committed_build(res)
     time_verify_scalar_muls(res, records)
     time_commit_levels(res, records)
+    profile_committed(res, records)
     for k in g1.KERNELS[1:]:
         records[k.name]["launches"] = launches[k.name]
 
@@ -1021,6 +1222,7 @@ def phase_committed(records: dict, ordinary: dict, pairs: int = 3) -> dict:
                                "launches_per_prove", "layer_s", "proof_bytes", "verify_s", "verify_launches")},
         "launches": launches, "alternating_spp": spp, "interleaved_spp": spp_i,
         "interleaved_launches_per_prove": launches_i, "interleaved_verify_s": verify_i,
+        "device_time": records["_committed_device"],
     }
     return res
 
@@ -1094,7 +1296,7 @@ def phase_demo(records: dict) -> None:
     records["_demo"] = runs
 
 
-def phase_schedules(records: dict, res: dict, pairs: int = 5) -> None:
+def phase_schedules(records: dict, res: dict, pairs: int = 3) -> None:
     """Phase 4's zkdl256 model proved with the grouped and the
     round-interleaved schedule alternately (steady spp of each, launches
     of one interleaved prove); the last interleaved proof is verified and
@@ -1151,17 +1353,24 @@ def main() -> int:
         return 2
     t0 = time.perf_counter()
     records: dict = {}
-    comb_only = sys.argv[1:] == ["--comb"]
-    phase_build(host_library=not comb_only)
-    if comb_only:
-        print(json.dumps({"g1_comb_shapes": phase_comb_times(torch.device("cuda"), with_plain=False)}), flush=True)
+    times_only = sys.argv[1:] in (["--comb"], ["--var-times"])
+    phase_build(host_library=not times_only)
+    dev = torch.device("cuda")
+    if sys.argv[1:] == ["--comb"]:
+        print(json.dumps({"g1_comb_shapes": phase_comb_times(dev, with_plain=False)}), flush=True)
+        return 0
+    if sys.argv[1:] == ["--var-times"]:
+        times = {"g1_comb_shapes": phase_comb_times(dev, with_plain=False), **phase_var_times(dev)}
+        print(json.dumps(times), flush=True)
         return 0
     if sys.argv[1:] == ["--var"]:
-        phase_var(torch.device("cuda"), records)
-        print(json.dumps({"g1_scalar_mul_shapes": records["_g1_scalar_mul_shapes"]}), flush=True)
+        phase_var(dev, records)
+        print(json.dumps({"g1_scalar_mul_shapes": records["_g1_scalar_mul_shapes"], **phase_var_times(dev)}),
+              flush=True)
         return 0
     phase_kernels(records)
-    phase_var(torch.device("cuda"), records)
+    phase_var(dev, records)
+    records["_var_times"] = phase_var_times(dev)
     log(f"[time] phases 1-2: {time.perf_counter() - t0:.1f}s")
     phase_small()
     log(f"[time] phase 3: {time.perf_counter() - t0:.1f}s")
@@ -1186,7 +1395,8 @@ def main() -> int:
     print(json.dumps({"kernels": kernels_line, "fr_dot_shapes": records["_fr_dot_shapes"],
                       "g1_comb_shapes": records["_g1_comb_shapes"],
                       "g1_scalar_mul_shapes": records["_g1_scalar_mul_shapes"],
-                      "g1_add_shapes": records["_g1_add_shapes"], "zkdl256": records["_zkdl256"],
+                      "g1_add_shapes": records["_g1_add_shapes"], "var_times": records["_var_times"],
+                      "zkdl256": records["_zkdl256"],
                       "committed": records["_committed"], "demo": records["_demo"],
                       "schedules": records["_schedules"]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -294,8 +294,11 @@ def test_team_model_fails_when_a_carry_is_dropped(drop):
 
 def test_kernel_source_matches_the_model():
     """The model's team shape and p' are the kernel's: a team of 16 lanes whose
-    first 12 hold a limb each, two teams a warp (one scalar a warp, so its
-    decisions are warp-uniform and its ballots whole-warp)."""
-    assert _const("TEAM_WIDTH") == 16 and _const("THREADS") % 32 == 0
+    first 12 hold a limb each (Team, csrc/fp_team.cuh), two teams a warp (one
+    scalar a warp, so its decisions are warp-uniform and its ballots
+    whole-warp)."""
+    team = (build.CSRC / "fp_team.cuh").read_text()
+    assert int(re.search(r"constexpr int TEAM_WIDTH = (\d+);", team).group(1)) == 16
+    assert '#include "fp_team.cuh"' in SRC and _const("THREADS") % 32 == 0
     field = (build.CSRC / "field.cuh").read_text()
     assert re.search(rf"NP0 = 0x{NP0:08x}u", field) and re.search(rf"N = {NL};", field)

@@ -94,7 +94,7 @@ def test_cuda_sources_carry_the_field_constants():
     """The CUDA sources hard-code p, -p^-1 mod 2^32 and R mod p: check them
     against the Python constants (the sources cannot be compiled here)."""
     hdr = (build.CSRC / "field.cuh").read_text()
-    comb = (build.CSRC / "g1_comb.cu").read_text()
+    team = (build.CSRC / "fp_team.cuh").read_text()  # the G1 kernels' lane teams (K4, K5)
 
     def arrays(text, name):
         return [[int(v, 16) for v in re.findall(r"0x([0-9a-f]+)u", body)]
@@ -105,7 +105,7 @@ def test_cuda_sources_carry_the_field_constants():
     assert fp_p == [int(x) for x in fp.SPEC.P_limbs]
     np0 = [int(v, 16) for v in re.findall(r"NP0 = 0x([0-9a-f]+)u", hdr)]
     assert np0 == [(-pow(fr.P_INT, -1, 1 << 32)) % (1 << 32), (-pow(fp.P_INT, -1, 1 << 32)) % (1 << 32)]
-    assert arrays(comb, "ONE") == [[int(x) for x in fp.ONE_MONT]]
+    assert arrays(team, "ONE") == [[int(x) for x in fp.ONE_MONT]]
 
 
 def test_wrappers_reject_bad_operands():

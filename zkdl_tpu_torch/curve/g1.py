@@ -17,10 +17,13 @@ of one scalar (5 levels per nonzero window), not by the multiply rate.
 
 ``scalar_mul`` on CUDA tensors launches K5 and ``add`` (with the tree sums
 ``g1_sum``/``sum_rows``, the bit-masked first level ``add_bits`` and the
-MLE folds built on it) K6, both in ``csrc/g1_var.cu``: one thread a point,
-the formulas of g1.py:add (:106-132), double (:90-103) and scalar_mul
-(:168-184) value for value, so the Jacobian limbs equal the JAX package's.
-On CPU tensors they run ``scalar_mul_plain``/``add_plain``/``add_bits_plain``.
+MLE folds built on it) K6, both in ``csrc/g1_var.cu``; the formulas of
+g1.py:add (:106-132), double (:90-103) and scalar_mul (:168-184) value for
+value, so the Jacobian limbs equal the JAX package's. K5 runs a point's
+products on two teams of lanes (K4's teams, ``csrc/fp_team.cuh``), one,
+four or sixteen points a warp, chosen by the launch's size
+(``SCALAR_MUL_FORMS``). K6 lists each block's generic pairs and runs them
+densely, one thread an add. On CPU tensors they run ``scalar_mul_plain``/``add_plain``/``add_bits_plain``.
 """
 
 from __future__ import annotations
@@ -54,6 +57,8 @@ COMB = Kernel("g1_comb", "zkdl_tpu_torch/csrc/g1_comb.cu", "zkdl_tpu/curve/g1.py
 SCALAR_MUL = Kernel("g1_scalar_mul", "zkdl_tpu_torch/csrc/g1_var.cu", "zkdl_tpu/curve/g1.py:168")
 ADD = Kernel("g1_add", "zkdl_tpu_torch/csrc/g1_var.cu", "zkdl_tpu/curve/g1.py:106")
 KERNELS = (COMB, SCALAR_MUL, ADD)
+# K5's layouts (csrc/g1_var.cu): chosen by the launch's size, or forced
+SCALAR_MUL_FORMS = {"auto": 0, "warp": 1, "quad": 2, "pair": 3}
 
 _COMB_W = 4
 _COMB_WINDOWS = 256 // _COMB_W
@@ -383,9 +388,9 @@ def _var_lib() -> ctypes.CDLL:
     lib = build.load("g1_var")
     if not getattr(lib, "_zk_typed", False):
         P, I = ctypes.c_void_p, ctypes.c_longlong
-        lib.zk_g1_scalar_mul.argtypes = [P, P, P, I, P, I, P, P, P, I, P, ctypes.c_int]
+        lib.zk_g1_scalar_mul_form.argtypes = [ctypes.c_int, P, P, P, I, P, I, P, P, P, I, P, ctypes.c_int]
         lib.zk_g1_add.argtypes = [P, P, P, I, P, P, P, I, ctypes.c_int, P, I, P, P, P, I, P, ctypes.c_int]
-        lib.zk_g1_scalar_mul.restype = lib.zk_g1_add.restype = ctypes.c_int
+        lib.zk_g1_scalar_mul_form.restype = lib.zk_g1_add.restype = ctypes.c_int
         lib._zk_typed = True
     return lib
 
@@ -458,10 +463,12 @@ def add_bits(bits: torch.Tensor, gens: G1Jac) -> G1Jac:
                    *(c.data_ptr() for c in g), 12, None, None, None, 0, 0, bits.data_ptr(), g.x.shape[0])
 
 
-def scalar_mul(p: G1Jac, scalar: torch.Tensor) -> G1Jac:
+def scalar_mul(p: G1Jac, scalar: torch.Tensor, form: str = "auto") -> G1Jac:
     """scalar * p by g1.py:scalar_mul's LSB-first double-and-add (limb for
     limb). scalar: raw (non-Montgomery) uint32, one per point (*p.shape, 8)
-    or one (8,) for all. K5 on CUDA tensors, the plain version on CPU ones."""
+    or one (8,) for all. K5 on CUDA tensors, in the layout ``form`` (a key
+    of SCALAR_MUL_FORMS; every form gives the same bits), the plain version
+    on CPU ones."""
     _check_points(p)
     shape = p.shape
     if scalar.dtype != torch.uint32 or scalar.shape[-1] != 8 or (
@@ -473,8 +480,8 @@ def scalar_mul(p: G1Jac, scalar: torch.Tensor) -> G1Jac:
     else:
         pr, ps = _rows_and_stride(p)
         sc = scalar.reshape(-1, 8).contiguous()
-        out = _launch(SCALAR_MUL, _var_lib().zk_g1_scalar_mul, dev, pr.x.shape[0],
-                      *(c.data_ptr() for c in pr), ps, sc.data_ptr(), 0 if scalar.dim() == 1 else 8)
+        out = _launch(SCALAR_MUL, functools.partial(_var_lib().zk_g1_scalar_mul_form, SCALAR_MUL_FORMS[form]), dev,
+                      pr.x.shape[0], *(c.data_ptr() for c in pr), ps, sc.data_ptr(), 0 if scalar.dim() == 1 else 8)
     return G1Jac(*(c.reshape(*shape, 12) for c in out))
 
 

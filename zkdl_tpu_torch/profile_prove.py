@@ -47,6 +47,24 @@ def _group(name: str) -> str:
     return "pytorch: " + name.split("(")[0].strip()[:80]
 
 
+def device_time(prof) -> tuple[dict[str, list], float, float]:
+    """Device-side events of a finished profile (kernels, copies; CPU op
+    events carry their kernels' time as their own device time) grouped by
+    _group: {group: [seconds, launches]}, and the first start and last end
+    (us)."""
+    groups: dict[str, list] = {}
+    first, last = float("inf"), 0.0
+    for ev in prof.events():
+        dur = ev.time_range.elapsed_us()
+        if ev.device_type != torch.autograd.DeviceType.CUDA or dur <= 0:
+            continue
+        g = groups.setdefault(_group(ev.name), [0.0, 0])
+        g[0] += dur / 1e6
+        g[1] += 1
+        first, last = min(first, ev.time_range.start), max(last, ev.time_range.end)
+    return groups, first, last
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser()
     parser.add_argument("--trace", metavar="DIR", help="also write the profiled run's Chrome trace to DIR")
@@ -61,18 +79,7 @@ def main(argv=None) -> None:
         model.prove(X, Y, Z, A, aux, interleave=res["interleave"], commit_aux=res["commit_aux"])
         torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
-    groups: dict[str, list] = {}
-    first, last = float("inf"), 0.0
-    for ev in prof.events():
-        # device-side events only (kernels, copies); CPU op events carry
-        # their kernels' time as their own device time
-        dur = ev.time_range.elapsed_us()
-        if ev.device_type != torch.autograd.DeviceType.CUDA or dur <= 0:
-            continue
-        g = groups.setdefault(_group(ev.name), [0.0, 0])
-        g[0] += dur / 1e6
-        g[1] += 1
-        first, last = min(first, ev.time_range.start), max(last, ev.time_range.end)
+    groups, first, last = device_time(prof)
     busy = sum(g[0] for g in groups.values())
     span = (last - first) / 1e6
     launches = sum(g[1] for g in groups.values())
