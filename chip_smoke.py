@@ -7,6 +7,7 @@ builds and runs.
     python3 chip_smoke.py --var     # phase 1, K5/K6 against plain, and their times
     python3 chip_smoke.py --var-times   # K4, K5 and K6 times only, at the verify's and the
                                         # commitments' shapes on seeded data
+    python3 chip_smoke.py --attention   # phase 1, K7 against plain, and phase 7 alone
 
 `--comb` and `--var-times` time K4 (and K5, K6) on the same seeded inputs in
 any checkout of the port they are copied into, so that two versions can be
@@ -70,7 +71,21 @@ Phases (each prints its own lines; any failure exits nonzero):
      in one committed prove (torch.profiler) beside the sums of their
      bounds; committed and ordinary proves alternately; an interleaved
      committed proof verified; four tampered copies rejected with the JAX
-     verifier's reasons is the kernels' JSON record; the last line is
+     verifier's reasons
+  7. the attention block (BENCH_CONFIG=attention: seq 128, d_model 128,
+     every witness committed) through bench.run: build, forward, warm and
+     steady proves, one more prove for the stage seconds, the proof's size, the verify
+     with Fiat-Shamir replay and the X/Y anchors, the launches of every
+     kernel in the run (all > 0, K7 among them); K7 (batch inversion) bit
+     for bit against plain at n = 1, 2, 5, 4096 (also with a zero input)
+     and 16,384 and timed at the lookup's two sizes beside its bound; three
+     tampered copies rejected with the reasons of the JAX verifier on the
+     recorded tiny proof (tests/port/fixtures/attention_jax.json); K5 and
+     K6 held against plain and timed at the witness commitments' launches;
+     the tiny block (seq 4, d 8) proved in both tiers on the card and on
+     the CPU, every proof array equal, and equal to the recorded JAX
+     proofs (tests/port/fixtures/attention_jax.npz)
+The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
@@ -866,7 +881,7 @@ def phase_zkdl256(records: dict) -> dict:
         k.launches = 0
     res = bench.run("zkdl256", device="cuda", split=True)
     torch.cuda.synchronize()
-    launches = {k.name: k.launches for k in (*kernels.KERNELS, g1.COMB)}  # the ordinary tier runs K1-K4
+    launches = {k.name: k.launches for k in (*kernels.FR_KERNELS, g1.COMB)}  # the ordinary tier runs K1-K4
     log(f"[zkdl256] build {res['build_s']:.3f}s, infer {res['infer_s']:.3f}s, "
         f"prove warm {res['warm_prove_s']:.3f}s, steady {res['prove_s']:.3f}s, "
         f"{res['spp']:.6f} s/point, peak device memory of the prove {res['prove_peak_gib']:.2f} GiB")
@@ -1170,7 +1185,7 @@ def phase_committed(records: dict, ordinary: dict, pairs: int = 3) -> dict:
         k.launches = 0
     res = bench.run("zkdl256_committed", device="cuda", split=True)
     torch.cuda.synchronize()
-    launches = bench.launch_counts()
+    launches = {k: v for k, v in bench.launch_counts().items() if k != kernels.INVERSE.name}  # K1-K6
     log(f"[committed] zkdl256_committed: build {res['build_s']:.3f}s, infer {res['infer_s']:.3f}s, prove warm "
         f"{res['warm_prove_s']:.3f}s, steady {res['prove_s']:.3f}s, {res['spp']:.6f} s/point, peak device memory "
         f"of the prove {res['prove_peak_gib']:.2f} GiB")
@@ -1259,8 +1274,8 @@ def phase_demo(records: dict) -> None:
         model_path = gen_benchmark.generate(d)
         log(f"[demo] gen_benchmark: dims {gen_benchmark.FULL_DIMS}, batch 256, in {time.perf_counter() - t0:.1f}s")
         out_path = os.path.join(d, "demo.out")
-        for flag, tier in (("--interleave", (*kernels.KERNELS, g1.COMB)),
-                           ("--commit-aux", (*kernels.KERNELS, *g1.KERNELS))):
+        for flag, tier in (("--interleave", (*kernels.FR_KERNELS, g1.COMB)),
+                           ("--commit-aux", (*kernels.FR_KERNELS, *g1.KERNELS))):
             argv = [model_path, os.path.join(d, "sample_input.pt"), flag, "--verify", "--out", out_path]
             for k in (*kernels.KERNELS, *g1.KERNELS):
                 k.launches = 0
@@ -1338,6 +1353,327 @@ def phase_schedules(records: dict, res: dict, pairs: int = 3) -> None:
     records["_schedules"] = {"spp": spp, "interleaved_launches_per_prove": launches,
                              "interleaved_verify_s": verify_s}
 # ---------------------------------------------------------------------------
+# phase 7: the attention block and K7
+# ---------------------------------------------------------------------------
+
+ATTENTION_JAX = os.path.join("tests", "port", "fixtures", "attention_jax.npz")  # the JAX recorder's arrays
+# three tampers of the JAX recorder (TAMPERS there: name, array path, index
+# of the word + 1, verify arguments) run on the seq-128 proof, each with the
+# JAX verifier's reason on the tiny proof (recorded in attention_jax.json,
+# which tests/port/test_torch_zkattention.py holds these against): no reason
+# names a size
+ATTENTION_FAULTS = [
+    ("committed_replay_swapped_u_x", "p.u_x", (0, 0), ("X", "Y", "transcript"),
+     "transcript: u_x not transcript-derived"),
+    ("committed_opening_t_folded", "p.witness.openings.at.mm_s.fa.proof.t_folded", (0, 0), (),
+     "mm_s: at.mm_s.fa: binding: generator MSM != row-commitment MLE at u_row"),
+    ("committed_wrong_Y", None, None, ("X", "Y_bad"), "public Y anchor mismatch"),
+]
+K7_SIZES = (1, 2, 5, 4096, 16384)  # one element (the Fermat power alone), odd, the table and the witness side
+K7_FERMAT = 255 + 128  # products of one Fermat power: a squaring a bit of p - 2 and a product a set bit (~128)
+
+
+def k7_bound(n: int) -> tuple[float, str]:
+    """Each input read and output written once (64 B an element); three
+    products an element (a prefix, and two on the way back) and the Fermat
+    power."""
+    return bound_ms(64 * n, FR_MUL_IMAD * (3 * n + K7_FERMAT))
+
+
+def _nonzero_fr(rng, n: int, device):
+    import torch
+    from zkdl_tpu_torch.field import fr
+
+    a = rng.integers(0, 1 << 32, size=(n, 8), dtype=np.uint32)
+    a[:, 7] %= np.uint32(fr.P_TOP_LIMB)
+    a[a.sum(axis=1) == 0, 0] = 1
+    return torch.from_numpy(a).to(device)
+
+
+def phase_k7(records: dict) -> None:
+    """K7 bit-equal to plain at K7_SIZES and with a zero input (every output
+    zero); timed at the lookup's sizes, 4096 (the table) and 16,384 (the
+    witness at seq 128), beside its bound."""
+    import torch
+    from zkdl_tpu_torch.field import kernels
+
+    rng = np.random.default_rng(9)
+    dev = torch.device("cuda")
+    inputs = {n: _nonzero_fr(rng, n, dev) for n in K7_SIZES}
+    zero = _nonzero_fr(rng, 4096, dev)
+    zero[1234] = 0
+    inputs["4096 with a zero"] = zero
+    err = 0
+    for n, x in inputs.items():
+        got, want = kernels.batch_inverse(x), kernels.batch_inverse_plain(x)
+        same(f"fr_batch_inverse at {n}", got, want)
+        err = max(err, max_abs_err(got, want))
+    if bool((kernels.batch_inverse(zero).view(torch.int32) != 0).any()):
+        raise AssertionError("fr_batch_inverse: a zero input must make every output zero")
+    shapes = {}
+    for n in (4096, 16384):
+        x = inputs[n]
+        ms = cuda_ms(lambda: kernels.batch_inverse(x), 20)
+        _, pms = plain_once(lambda: kernels.batch_inverse_plain(x))
+        bms, by = k7_bound(n)
+        shapes[n] = {"ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by}
+        log(f"[attention] fr_batch_inverse at n={n}: {ms:.4f} ms (plain {pms:.2f} ms, bound {bms:.6f} ms by {by}, "
+            f"{100 * bms / ms:.3f}% of it)")
+    log(f"[attention] fr_batch_inverse bit-equal to plain at n = {', '.join(map(str, inputs))} (a zero input "
+        "gives all zeros, as the JAX function does)")
+    records["fr_batch_inverse"] = {**shapes[16384], "max_abs_err": err, "library_ms": None}
+    records["_fr_batch_inverse_shapes"] = shapes
+
+
+def tampered_copy(proof, path: str, index, device):
+    """The proof with the word at `index` of its array `path` (proof_io's
+    flattened names) plus one, wrapping, as the JAX recorder tampers."""
+    from zkdl_tpu_torch.io import proof_io
+
+    arrays: dict = {}
+    skel = proof_io.flatten(proof, "p", arrays)
+    arrays = {k: np.array(v) for k, v in arrays.items()}
+    if path is not None:
+        arrays[path][tuple(index)] += np.uint32(1)
+    return proof_io._unflatten(skel, arrays, device)
+
+
+def attention_arrays(proof) -> dict:
+    from zkdl_tpu_torch.io import proof_io
+
+    arrays: dict = {}
+    proof_io.flatten(proof, "p", arrays)
+    return arrays
+
+
+def tiny_attention(device):
+    """tests/test_attention.py's block: seq 4, d 8, weights and input from
+    default_rng(0), generators from PRNGKey(0)."""
+    from zkdl_tpu_torch.commit.pedersen import to_mont_rows
+    from zkdl_tpu_torch.models import quantize, zkattention
+    from zkdl_tpu_torch.utils import prng
+
+    rng = np.random.default_rng(0)
+    ws = [(rng.standard_normal((8, 8)) * 0.3).astype(np.float32) for _ in range(4)]
+    attn = zkattention.ZkAttention.from_float(4, *ws, prng.PRNGKey(0), device)
+    X = to_mont_rows(quantize.load_input(rng.standard_normal((4, 8)).astype(np.float32), device))
+    return attn, X
+
+
+def check_tiny_attention() -> None:
+    """Both tiers of the tiny block on the card and on the CPU: every proof
+    array equal, and equal to the JAX recorder's arrays."""
+    import torch
+    from zkdl_tpu_torch.sumcheck.transcript import FiatShamir
+
+    proofs = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        attn, X = tiny_attention(dev)
+        _, tr = attn.forward(X)
+        for tier in ("plain", "committed"):
+            proofs[dev, tier] = attention_arrays(attn.prove(tr, FiatShamir(), commit_witness=tier == "committed"))
+        torch.cuda.synchronize()
+        log(f"[attention] tiny block (seq 4, d 8) proved in both tiers on {dev} in {time.perf_counter() - t0:.1f}s")
+    recorded = None
+    if os.path.exists(ATTENTION_JAX):
+        with np.load(ATTENTION_JAX) as z:
+            keys = json.loads(bytes(z["__keys__"]).decode())
+            recorded = {k: z[v] for k, v in keys.items()}
+    for tier in ("plain", "committed"):
+        card, cpu = proofs["cuda", tier], proofs["cpu", tier]
+        bad = sorted(set(card) ^ set(cpu)) + [k for k in card if k in cpu and not np.array_equal(card[k], cpu[k])]
+        if bad:
+            raise AssertionError(f"tiny {tier} proof: card != CPU at {bad[:5]}")
+        msg = f"{len(card)} arrays of the card's proof equal the CPU port's"
+        if recorded is not None:
+            jax = {k[len(tier) + 1 :]: v for k, v in recorded.items() if k.startswith(tier + ":")}
+            jax.pop("__skeleton__", None)
+            bad = sorted(set(card) ^ set(jax)) + [k for k in card if k in jax and not np.array_equal(card[k], jax[k])]
+            if bad:
+                raise AssertionError(f"tiny {tier} proof: card != the JAX recorder's at {bad[:5]}")
+            msg += " and the JAX recorder's"
+        log(f"[attention] tiny {tier} tier: {msg}")
+    if recorded is None:
+        raise AssertionError(f"{ATTENTION_JAX} missing: the card's tiny proof has no JAX arrays to meet")
+
+
+def g1_var_const(name: str) -> int:
+    """A launch constant of zkdl_tpu_torch/csrc/g1_var.cu, read from the
+    source (K5 picks its layout by them, K6 its tile)."""
+    import re
+
+    src = open(os.path.join("zkdl_tpu_torch", "csrc", "g1_var.cu")).read()
+    m = re.search(rf"constexpr \w+ {name} = ([0-9 *]+);", src)
+    if m is None:
+        raise AssertionError(f"{name} not found in g1_var.cu")
+    return int(np.prod([int(v) for v in m.group(1).split("*")]))
+
+
+def k5_layout(n: int) -> str:
+    """The layout zk_g1_scalar_mul_form's auto picks for n points with a
+    scalar each."""
+    return "Team" if n < g1_var_const("QUAD_FROM") else "Solo" if n >= g1_var_const("SOLO_FROM") else "Quad"
+
+
+def k6_tile(n: int) -> int:
+    """zk_g1_add's tile (pairs a block) at a launch of n pairs."""
+    blocks, threads = g1_var_const("ADD_BLOCKS"), g1_var_const("ADD_THREADS")
+    return min(g1_var_const("ADD_TILE"), -(-(-(-n // blocks)) // threads) * threads)
+
+
+def time_commit_launches(res: dict, records: dict) -> None:
+    """One more commitment of the seq-128 witness with K5's and K6's
+    launches recorded and the openings' seconds summed. K5 is held against
+    plain on the first SOLO_FROM points of its first launch and the last
+    SOLO_FROM of its last (one launch that takes the layout every launch of
+    the MSM takes) and timed at its largest launch; K6's largest bit-mode
+    level is held against plain whole (so at its own tile) and timed."""
+    import torch
+    from zkdl_tpu_torch.commit import pedersen
+    from zkdl_tpu_torch.curve import g1
+    from zkdl_tpu_torch.sumcheck.transcript import FiatShamir
+
+    calls = {"scalar_mul": [], "add_bits": []}
+    smul, bits_, reveal = g1.scalar_mul, g1.add_bits, pedersen.open_reveal
+    opening_s = [0.0, 0]
+
+    def scalar_mul(p, scal, form="auto"):
+        calls["scalar_mul"].append((g1.G1Jac(*(c.clone() for c in p)), scal.clone()))
+        return smul(p, scal, form)
+
+    def add_bits(bits, gens):
+        calls["add_bits"].append((bits.clone(), g1.G1Jac(*(c.clone() for c in gens))))
+        return bits_(bits, gens)
+
+    def open_reveal(*a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = reveal(*a)
+        torch.cuda.synchronize()
+        opening_s[0] += time.perf_counter() - t0
+        opening_s[1] += 1
+        return out
+
+    attn, tr = res["model"], res["trace"]
+    g1.scalar_mul, g1.add_bits, pedersen.open_reveal = scalar_mul, add_bits, open_reveal
+    try:
+        attn.prove(tr, FiatShamir(), commit_witness=True)
+        torch.cuda.synchronize()
+    finally:
+        g1.scalar_mul, g1.add_bits, pedersen.open_reveal = smul, bits_, reveal
+    log(f"[attention] one committed prove: K5 launched at {[p.x.shape[0] for p, _ in calls['scalar_mul']]} points, "
+        f"K6 in bit mode at {[b.shape[0] // 2 for b, _ in calls['add_bits']]} pairs; {opening_s[1]} openings took "
+        f"{opening_s[0]:.3f}s (a sync around each)")
+    shapes = records.setdefault("_attention_commit_launches", {"openings_s": opening_s[0], "openings": opening_s[1]})
+    msm = [c for c in calls["scalar_mul"] if c[1].dim() == 2]
+    layouts = sorted({k5_layout(p.x.shape[0]) for p, _ in msm})
+    half = g1_var_const("SOLO_FROM")
+    (first, s_first), (last, s_last) = msm[0], msm[-1]
+    check = (g1.G1Jac(*(torch.cat([a[:half], b[-half:]]) for a, b in zip(first, last))),
+             torch.cat([s_first[:half], s_last[-half:]]))
+    if layouts != [k5_layout(2 * half)]:
+        raise AssertionError(f"the witness MSM's launches take {layouts}, the check {k5_layout(2 * half)}")
+    t0 = time.perf_counter()
+    err = point_err(g1.scalar_mul(*check), g1.scalar_mul_plain(*check))
+    if err:
+        raise AssertionError(f"g1_scalar_mul differs from plain on the witness MSM's points: {err}")
+    plain_s = time.perf_counter() - t0
+    pts, scal = max(msm, key=lambda c: c[0].x.shape[0])
+    n = pts.x.shape[0]
+    ms = cuda_ms(lambda: g1.scalar_mul(pts, scal), 3)
+    bms, by = var_bound(pts, scal)
+    shapes["K5 witness MSM"] = {"points": n, "ms": ms, "bound_ms": bms, "bound_by": by}
+    log(f"[attention] g1_scalar_mul at the witness commitments' MSM ({n} points, a scalar each): {ms:.4f} ms, bound "
+        f"{bms:.4f} ms by {by} ({100 * bms / ms:.2f}%); {2 * half} of its points (the first {half} of the first "
+        f"launch, the last {half} of the last) bit-equal to plain in one launch of the {layouts[0]} layout, which "
+        f"every launch of the MSM takes (plain {plain_s:.1f}s)")
+    bits, gens = max(calls["add_bits"], key=lambda c: c[0].shape[0])
+    gsize = gens.x.reshape(-1, 12).shape[0]
+    t0 = time.perf_counter()
+    err = point_err(g1.add_bits(bits, gens), g1.add_bits_plain(bits, gens))
+    if err:
+        raise AssertionError(f"g1_add (bit mode) differs from plain on the witness bits: {err}")
+    plain_s = time.perf_counter() - t0
+    ms = cuda_ms(lambda: g1.add_bits(bits, gens), 10)
+    bms, by = add_bits_bound(bits, gsize)
+    shapes["K6 witness bits, level 1"] = {"pairs": bits.shape[0] // 2, "gen": gsize, "ms": ms, "bound_ms": bms,
+                                          "bound_by": by}
+    log(f"[attention] g1_add in bit mode at the witness bits' first level ({bits.shape[0] // 2} pairs over {gsize} "
+        f"generators, {k6_tile(bits.shape[0] // 2)} pairs a block): {ms:.4f} ms, bound {bms:.4f} ms by {by} "
+        f"({100 * bms / ms:.2f}%); the whole launch bit-equal to plain (plain {plain_s:.1f}s)")
+
+
+def phase_attention(records: dict) -> None:
+    """The attention block at seq 128, d 128 through bench.run("attention"),
+    the tampers, the commitments' launches and the tiny block on both
+    devices."""
+    import torch
+    from zkdl_tpu_torch import bench
+    from zkdl_tpu_torch.curve import g1
+    from zkdl_tpu_torch.field import kernels
+
+    for k in (*kernels.KERNELS, *g1.KERNELS):
+        k.launches = 0
+    res = bench.run("attention", device="cuda")
+    torch.cuda.synchronize()
+    launches = bench.launch_counts()
+    log(f"[attention] seq 128, d 128, committed witness: build {res['build_s']:.3f}s, forward {res['forward_s']:.3f}s, "
+        f"prove warm {res['warm_prove_s']:.3f}s, steady {res['prove_s']:.3f}s ({res['prover_s_per_row']:.6f} s/row), "
+        f"peak device memory of the prove {res['prove_peak_gib']:.3f} GiB")
+    log(f"[attention] stage seconds of one more prove, with a synchronize a stage: {json.dumps(res['stage_s'])}")
+    log(f"[attention] launches in this run (build, 3 proves, verify): {json.dumps(launches)}; per prove: "
+        f"{json.dumps(res['launches_per_prove'])}")
+    for name, count in launches.items():
+        if count <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the attention path")
+    if (res["verify_ok"], res["verify_msg"]) != (True, ""):
+        raise AssertionError(f"the port's verifier rejected the attention proof: {res['verify_msg']}")
+    log(f"[attention] proof {res['proof_bytes']} bytes; accepted by ZkAttention.verify(X, Y, FiatShamir()) in "
+        f"{res['verify_s']:.3f}s; kernel launches in the verify: {json.dumps(res['verify_launches'])}")
+    records["fr_batch_inverse"]["launches"] = launches["fr_batch_inverse"]
+    t_max = int(res["trace"]["sm_wit"]["t"].max())
+    log(f"[attention] the softmax witness's largest t is {t_max} (< 2^32: no value loses bits to the 32-bit "
+        f"Montgomery tensors of the JAX package's convention)")
+    if t_max >= 1 << 32:
+        raise AssertionError(f"softmax witness t = {t_max} does not fit 32 bits")
+
+    from zkdl_tpu_torch.sumcheck.transcript import FiatShamir
+
+    attn, X, Y = res["model"], res["X"], res["Y"]
+    for name, path, index, args, reason in ATTENTION_FAULTS:
+        bad = tampered_copy(res["proof"], path, index, X.device)
+        Y_used = Y
+        if "Y_bad" in args:
+            from zkdl_tpu_torch.field import mp
+
+            a = mp.host(Y).copy()
+            a[0] = fr_limbs_mont(7 << 16)
+            Y_used = torch.from_numpy(a).to(Y.device)
+        t0 = time.perf_counter()
+        got = attn.verify(bad, X=X if "X" in args else None, Y=Y_used if ("Y" in args or "Y_bad" in args) else None,
+                          transcript=FiatShamir() if "transcript" in args else None)
+        if got != (False, reason):
+            raise AssertionError(f"tampered {name}: verifier returned {got}, expected (False, {reason!r})")
+        log(f"[attention] tampered {name}: rejected in {time.perf_counter() - t0:.3f}s: {reason}")
+    time_commit_launches(res, records)
+    check_tiny_attention()
+    records["_attention"] = {
+        **{k: res[k] for k in ("build_s", "forward_s", "warm_prove_s", "prove_s", "prover_s_per_row", "stage_s",
+                               "launches_per_prove", "prove_peak_gib", "proof_bytes", "verify_s",
+                               "verify_launches")},
+        "launches": launches, "k7_shapes": records["_fr_batch_inverse_shapes"],
+        "commit_launches": records["_attention_commit_launches"],
+    }
+
+
+def fr_limbs_mont(v: int):
+    from zkdl_tpu_torch.field import fr
+
+    return fr.from_ints([v], mont_form=True)[0]
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1363,6 +1699,11 @@ def main() -> int:
         times = {"g1_comb_shapes": phase_comb_times(dev, with_plain=False), **phase_var_times(dev)}
         print(json.dumps(times), flush=True)
         return 0
+    if sys.argv[1:] == ["--attention"]:
+        phase_k7(records)
+        phase_attention(records)
+        print(json.dumps({"attention": records["_attention"]}), flush=True)
+        return 0
     if sys.argv[1:] == ["--var"]:
         phase_var(dev, records)
         print(json.dumps({"g1_scalar_mul_shapes": records["_g1_scalar_mul_shapes"], **phase_var_times(dev)}),
@@ -1382,6 +1723,9 @@ def main() -> int:
     phase_schedules(records, res)
     del res
     log(f"[time] phase 5: {time.perf_counter() - t0:.1f}s")
+    phase_k7(records)
+    phase_attention(records)
+    log(f"[time] phase 7 (attention): {time.perf_counter() - t0:.1f}s")
     from zkdl_tpu_torch.curve import g1
     from zkdl_tpu_torch.field import kernels
 
@@ -1398,7 +1742,7 @@ def main() -> int:
                       "g1_add_shapes": records["_g1_add_shapes"], "var_times": records["_var_times"],
                       "zkdl256": records["_zkdl256"],
                       "committed": records["_committed"], "demo": records["_demo"],
-                      "schedules": records["_schedules"]}), flush=True)
+                      "schedules": records["_schedules"], "attention": records["_attention"]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

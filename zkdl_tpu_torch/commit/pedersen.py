@@ -3,8 +3,8 @@ and the committed-aux tier's NUMS generators and revealed-fold openings.
 
 Counterpart of ``zkdl_tpu/commit/pedersen.py``: ``Generators``,
 ``RowCommitments``, ``OpeningProof`` (:59-121), ``setup`` (:134-143),
-``aux_generators`` (:146-155), ``commit`` with the dlog fast path (:157-171,
-:188-200), ``open_planar`` (:328-399), the host verifier ``verify_open``
+``aux_generators`` (:146-155), ``commit`` with the dlog fast path and the
+opaque-generator branch (:157-200), ``open_planar`` (:328-399), the host verifier ``verify_open``
 (:421-464) and ``verify_open_against_com`` (:803-826); and the committed-aux
 tier: ``nums_generators`` (:607-643), ``commit_bits`` (:646-671),
 ``FoldOpening``, ``open_reveal`` and ``verify_reveal`` (:674-794).
@@ -34,7 +34,6 @@ Its scalar multiplications run in the native host library, a batch per call
 from __future__ import annotations
 
 import dataclasses
-import functools
 import hashlib
 
 import numpy as np
@@ -114,16 +113,86 @@ def aux_generators(size: int, device) -> Generators:
 
 
 def commit(gens: Generators, t: torch.Tensor) -> RowCommitments:
-    """Row commitments of t (m*gen_size, 8) Montgomery: sigma_row =
-    sum_i t_i * r_i (one lazy dot per row, K3), then G^unmont(sigma) (K4)."""
-    if gens.dlogs is None:
-        raise ValueError("commit needs the transparent setup (dlogs)")
+    """Row commitments of t (m*gen_size, 8) Montgomery (pedersen.py:commit).
+
+    Transparent setup (dlogs): sigma_row = sum_i t_i * r_i (one lazy dot per
+    row, K3), then G^unmont(sigma) (K4). Opaque generators (NUMS, no dlogs):
+    row r is sum_i unmont(t[r, i]) * g_i, each product by g1.scalar_mul (K5)
+    and each row summed by g1_sum's tree (K6), as the JAX package's CPU
+    branch computes it (its accelerator branch takes GLV, whose Jacobian
+    limbs differ). A tensor whose every element is 0 or 1 takes the masked
+    sum of commit_bits instead, which gives the same limbs: a product by 1
+    is the generator's limbs and a product by 0 the identity (0, 0, 0)."""
     gen_size = gens.size
     if t.shape[0] % gen_size:
         raise ValueError(f"commit: {t.shape[0]} rows not a multiple of {gen_size}")
     m = t.shape[0] // gen_size
-    sigma = _commit_rows_fast(t.reshape(m, gen_size, 8), gens.dlogs)
-    return RowCommitments(points=g1.generator_pow(from_mont_rows(sigma)), dlogs=sigma)
+    if gens.dlogs is not None:
+        sigma = _commit_rows_fast(t.reshape(m, gen_size, 8), gens.dlogs)
+        return RowCommitments(points=g1.generator_pow(from_mont_rows(sigma)), dlogs=sigma)
+    return commit_many([(gens, t)])[0]
+
+
+_MSM_CHUNK = 1 << 18  # products per scalar_mul launch of commit_msm, and generator copies made at once
+
+
+def commit_msm(gens_raws) -> list[g1.G1Jac]:
+    """Row commitments of raw (unmonted) scalars over generator vectors,
+    [(gens, raw (m*gen_size, 8)), ...] -> [(m,) points, ...]: every product
+    in scalar_mul launches of _MSM_CHUNK points (K5; each launch's
+    generators gathered for it alone, product i taking generator i mod
+    gen_size of its vector), then a K6 tree per row, the rows of one
+    generator size side by side."""
+    tables, index, scalars, rows, base = [], [], [], [], 0
+    for gens, raw in gens_raws:
+        m = raw.shape[0] // gens.size
+        tables.append(gens.points)
+        index.append(base + torch.arange(gens.size, device=raw.device).repeat(m))
+        scalars.append(raw)
+        rows.append(m)
+        base += gens.size
+    table, index, scalars = _cat(tables), torch.cat(index), torch.cat(scalars)
+    n = scalars.shape[0]
+    prods = _cat([g1.scalar_mul(g1.G1Jac(*(mp.take(c, index[lo : lo + _MSM_CHUNK], 0) for c in table)),
+                                scalars[lo : lo + _MSM_CHUNK].contiguous()) for lo in range(0, n, _MSM_CHUNK)])
+    parts = _split(prods, [m * g.size for (g, _), m in zip(gens_raws, rows)])
+    out: list = [None] * len(parts)
+    for size in sorted({g.size for g, _ in gens_raws}):
+        group = [k for k, (g, _) in enumerate(gens_raws) if g.size == size]
+        sums = g1.sum_rows(g1.G1Jac(*(torch.cat([getattr(parts[k], c) for k in group]).reshape(-1, size, 12)
+                                      for c in ("x", "y", "z"))))
+        for k, p in zip(group, _split(sums, [rows[k] for k in group])):
+            out[k] = p
+    return out
+
+
+def commit_many(items) -> list[RowCommitments]:
+    """commit(gens, t) of each (gens, t) in items, opaque generators, all at
+    once: the bit tensors' rows over one generator vector in one masked sum,
+    every other tensor's products in one commit_msm. Each result equals
+    commit(gens, t)."""
+    out: list = [None] * len(items)
+    wide = []
+    for size in sorted({g.size for g, _ in items}):
+        bits = []
+        for k, (gens, t) in enumerate(items):
+            if gens.size != size:
+                continue
+            raw = from_mont_rows(t)
+            r64 = mp.i64(raw)
+            if bool(((r64[:, 1:] == 0).all() & (r64[:, 0] <= 1).all()).item()):
+                bits.append((k, raw[:, 0]))
+            else:
+                wide.append((k, gens, raw))
+        if bits:
+            gens = items[bits[0][0]][0]
+            pts = g1.sum_bit_rows(torch.cat([b for _, b in bits]).reshape(-1, size), gens.points)
+            for (k, b), p in zip(bits, _split(pts, [b.shape[0] // size for _, b in bits])):
+                out[k] = RowCommitments(points=p)
+    if wide:
+        for (k, _, _), p in zip(wide, commit_msm([(g, raw) for _, g, raw in wide])):
+            out[k] = RowCommitments(points=p)
+    return out
 
 
 def _commit_rows_fast(t3: torch.Tensor, dlogs: torch.Tensor) -> torch.Tensor:
@@ -290,19 +359,28 @@ def _nums_affine(count: int) -> list:
     return _NUMS_STREAM[:count]
 
 
-@functools.lru_cache(maxsize=None)
+_NUMS_LONGEST: dict = {}  # device -> the longest NUMS vector made there
+
+
 def nums_generators(size: int, device) -> Generators:
     """Nothing-up-my-sleeve generator vector (pedersen.py:nums_generators),
     prefix-stable across sizes: the hashed candidates, cofactor-cleared into
     the order-r subgroup by one scalar_mul (K5 on the card). Nobody knows
-    their dlogs, so commitments over them bind. Cached per size and device,
-    as the JAX function is per size."""
-    cands = convert.jac_to_device([host_g1.JacPoint(x, y, 1) for (_, x, y) in _nums_affine(size)], device)
-    cof = torch.from_numpy(mp.limbs_from_int(_G1_COFACTOR, 8)).to(cands.x.device)
-    pts = g1.scalar_mul(cands, cof)
-    if bool(g1.is_identity(pts).any()):
-        raise AssertionError("cofactor-cleared to identity")
-    return Generators(points=pts, dlogs=None, glv_safe=True)
+    their dlogs, so commitments over them bind. Point i depends on i alone,
+    so a vector is the prefix of the longest one made on its device (made
+    anew when a longer one is asked for)."""
+    dev = torch.device(device)
+    longest = _NUMS_LONGEST.get(dev)
+    if longest is None or longest.size < size:
+        cands = convert.jac_to_device([host_g1.JacPoint(x, y, 1) for (_, x, y) in _nums_affine(size)], dev)
+        cof = torch.from_numpy(mp.limbs_from_int(_G1_COFACTOR, 8)).to(cands.x.device)
+        pts = g1.scalar_mul(cands, cof)
+        if bool(g1.is_identity(pts).any()):
+            raise AssertionError("cofactor-cleared to identity")
+        longest = _NUMS_LONGEST[dev] = Generators(points=pts, dlogs=None, glv_safe=True)
+    if longest.size == size:
+        return longest
+    return Generators(points=g1.G1Jac(*(c[:size] for c in longest.points)), dlogs=None, glv_safe=True)
 
 
 def commit_bits(gens: Generators, bits: torch.Tensor) -> RowCommitments:
@@ -374,7 +452,8 @@ def verify_reveals(checks) -> list[tuple[bool, str]]:
     expected_value)], returning each one's (ok, reason). Their group math
     shares launches: one scalar_mul for every MSM, one tree sum for the
     MSMs of each generator size, and the row-commitment MLEs folded side by
-    side (g1.me_evals)."""
+    side (g1.me_evals); for openings on the CPU it runs in the native host
+    library instead."""
     results: list = [None] * len(checks)
     live = []
     for k, (opening, gens, com, u, _) in enumerate(checks):
@@ -385,7 +464,35 @@ def verify_reveals(checks) -> list[tuple[bool, str]]:
             results[k] = (False, err)
     if not live:
         return results
+    if checks[live[0]][2].points.x.device.type == "cpu":
+        msms, mles, u_ins = _reveal_group_math_host(checks, live)
+    else:
+        msms, mles, u_ins = _reveal_group_math(checks, live)
 
+    for k in live:
+        opening, _, _, _, expected = checks[k]
+        if not host_g1.eq_points(msms[k], mles[k]):
+            results[k] = (False, "generator MSM != row-commitment MLE at u_row")
+            continue
+        if expected is not None:
+            u_in = torch.from_numpy(fr.from_ints(u_ins[k], mont_form=False)) if u_ins[k] else \
+                torch.zeros((0, 8), dtype=torch.uint32)
+            value = fr.to_ints(mp.host(fr_ops.me_eval(opening.t_folded, u_in))[None])[0]
+            if value != expected:
+                results[k] = (False, "folded MLE value != expected")
+                continue
+        results[k] = (True, "")
+    return results
+
+
+def _split_point(com: RowCommitments, u) -> tuple[list[int], list[int]]:
+    log_m = fr_ops.ceil_log2(com.points.x.shape[0])
+    return list(u[len(u) - log_m :]), list(u[: len(u) - log_m])
+
+
+def _reveal_group_math(checks, live):
+    """The openings' MSMs and row-commitment MLEs on the device (K5, K6):
+    ({k: msm}, {k: mle}) as host points, and {k: u_in}."""
     msm_pts = _cat([checks[k][1].points for k in live])
     msm_scalars = torch.cat([from_mont_rows(checks[k][0].t_folded) for k in live])
     products = _split(g1.scalar_mul(msm_pts, msm_scalars), [checks[k][1].size for k in live])
@@ -398,22 +505,44 @@ def verify_reveals(checks) -> list[tuple[bool, str]]:
 
     u_rows, u_ins = {}, {}
     for k in live:
-        _, _, com, u, _ = checks[k]
-        log_m = fr_ops.ceil_log2(com.points.x.shape[0])
-        u_rows[k], u_ins[k] = list(u[len(u) - log_m :]), list(u[: len(u) - log_m])
+        u_rows[k], u_ins[k] = _split_point(checks[k][2], checks[k][3])
     mles = dict(zip(live, g1.me_evals([checks[k][2].points for k in live], [u_rows[k] for k in live])))
+    return ({k: _point(v) for k, v in msms.items()}, {k: _point(v) for k, v in mles.items()}, u_ins)
 
+
+def _reveal_group_math_host(checks, live):
+    """The same group math for openings on the CPU, in the native host
+    library (one batch of scalar multiplications for every MSM, one a level
+    for the MLE folds): the verifier compares the two points in affine
+    form, so any correct computation of the group elements serves."""
+    msm_pts, scalars, sizes = [], [], []
     for k in live:
-        opening, _, _, _, expected = checks[k]
-        if not host_g1.eq_points(_point(msms[k]), _point(mles[k])):
-            results[k] = (False, "generator MSM != row-commitment MLE at u_row")
-            continue
-        if expected is not None:
-            u_in = torch.from_numpy(fr.from_ints(u_ins[k], mont_form=False)) if u_ins[k] else \
-                torch.zeros((0, 8), dtype=torch.uint32)
-            value = fr.to_ints(mp.host(fr_ops.me_eval(opening.t_folded, u_in))[None])[0]
-            if value != expected:
-                results[k] = (False, "folded MLE value != expected")
-                continue
-        results[k] = (True, "")
-    return results
+        opening, gens, _, _, _ = checks[k]
+        msm_pts += convert.jac_from_device(gens.points)
+        scalars += fr.to_ints(mp.host(opening.t_folded), mont_form=True)
+        sizes.append(gens.size)
+    prods = host_g1.scalar_mul_batch(msm_pts, scalars)
+    msms, at = {}, 0
+    for k, size in zip(live, sizes):
+        acc = host_g1.IDENTITY
+        for q in prods[at : at + size]:
+            acc = host_g1.add(acc, q)
+        msms[k], at = acc, at + size
+    vecs, u_rows, u_ins = {}, {}, {}
+    for k in live:
+        u_rows[k], u_ins[k] = _split_point(checks[k][2], checks[k][3])
+        vecs[k] = convert.jac_from_device(checks[k][2].points)
+    for level in range(max(len(u) for u in u_rows.values())):
+        todo = [k for k in live if level < len(u_rows[k])]
+        diffs, xs = [], []
+        for k in todo:
+            pts = vecs[k]
+            if len(pts) % 2:
+                pts.append(host_g1.IDENTITY)
+            diffs += [host_g1.add(pts[2 * i + 1], host_g1.neg(pts[2 * i])) for i in range(len(pts) // 2)]
+            xs += [HF.unmont(u_rows[k][level])] * (len(pts) // 2)
+        steps = iter(host_g1.scalar_mul_batch(diffs, xs))
+        for k in todo:
+            pts = vecs[k]
+            vecs[k] = [host_g1.add(pts[2 * i], next(steps)) for i in range(len(pts) // 2)]
+    return msms, {k: vecs[k][0] for k in live}, u_ins

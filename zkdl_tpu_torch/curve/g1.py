@@ -358,20 +358,25 @@ def _scalar_bits(scalar: torch.Tensor) -> torch.Tensor:
 
 def _scalar_mul_w(p, bits):
     """g1.py:scalar_mul's loop (out = bit ? add(out, acc) : out, acc =
-    double(acc)) over the working form, up to the highest bit set in any
-    scalar (past it out no longer changes); a bit no scalar has set skips
-    its add."""
-    zero = torch.zeros_like(p[0])
-    out, acc = (zero, zero, zero), p
-    live = bits.any(0).nonzero()
-    top = int(live.max()) if live.numel() else -1
-    for b in range(top + 1):
-        m = bits[:, b]
-        if bool(m.any()):
-            out = _select_w(m, _add_w(out, acc), out)
-        if b < top:
-            acc = _double_w(acc)
-    return out
+    double(acc)) over the working form: bit b adds into the points whose
+    scalar has it set and doubles the points whose scalar has a higher bit
+    set (past a scalar's top bit its acc is not read again), so every
+    point's limbs are those of the full loop."""
+    n = bits.shape[0]
+    out = [torch.zeros_like(c) for c in p]
+    acc = [c.clone() for c in p]
+    idx = torch.arange(n, device=bits.device)
+    tops = torch.where(bits.any(1), 255 - bits.flip(1).to(torch.int32).argmax(1), -1)
+    for b in range(int(tops.max()) + 1 if n else 0):
+        sel = idx[bits[:, b]]
+        if sel.numel():
+            for c, r in zip(out, _add_w(tuple(c[:, sel] for c in out), tuple(c[:, sel] for c in acc))):
+                c[:, sel] = r
+        live = idx[tops > b]
+        if live.numel():
+            for c, r in zip(acc, _double_w(tuple(c[:, live] for c in acc))):
+                c[:, live] = r
+    return tuple(out)
 
 
 def scalar_mul_plain(p: G1Jac, scalar: torch.Tensor) -> G1Jac:

@@ -10,12 +10,14 @@ first use) or raises: there is no fallback between the two.
 | mul          | K1 fr_mul          | pallas_fr.py:_mul_kernel (:156)       |
 | mul_scalar   | K2 fr_mul_scalar   | pallas_fr.py:_mul_scalar_kernel (:163)|
 | dot/dot_many | K3 fr_dot          | pallas_fr.py:_dot_cols_kernel (:186)  |
+| batch_inverse| K7 fr_batch_inverse| sumcheck/lookup.py:batch_inverse (:55)|
 
 Bounds on an H100 (csrc/fr_kernels.cu has the derivation): all three are
 memory-bound, K1/K2 at 96/64 B per element, K3 at 64 B per element read
 (128 multiply-adds of its lazy product take less time than the bytes). K3
 serves ``dot`` and every ``dot_many`` call in one launch each; ``plan_dot``
-sets its grid.
+sets its grid. K7 (``csrc/fr_inverse.cu``, an XLA scan on the TPU) is
+bound by its chain of dependent products, above all one Fermat power.
 """
 
 from __future__ import annotations
@@ -61,7 +63,9 @@ class Kernel:
 MUL = Kernel("fr_mul", SOURCE, "zkdl_tpu/field/pallas_fr.py:156")
 MUL_SCALAR = Kernel("fr_mul_scalar", SOURCE, "zkdl_tpu/field/pallas_fr.py:163")
 DOT = Kernel("fr_dot", SOURCE, "zkdl_tpu/field/pallas_fr.py:186")
-KERNELS = (MUL, MUL_SCALAR, DOT)
+INVERSE = Kernel("fr_batch_inverse", "zkdl_tpu_torch/csrc/fr_inverse.cu", "zkdl_tpu/sumcheck/lookup.py:55")
+FR_KERNELS = (MUL, MUL_SCALAR, DOT)  # the MLP's paths run these three
+KERNELS = (*FR_KERNELS, INVERSE)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_longlong
@@ -75,6 +79,17 @@ def _lib() -> ctypes.CDLL:
         lib.zk_fr_dot.argtypes = [ctypes.c_char_p]
         for f in (lib.zk_fr_mul, lib.zk_fr_mul_scalar, lib.zk_fr_dot):
             f.restype = ctypes.c_int
+        lib._zk_typed = True
+    return lib
+
+
+def _inverse_lib() -> ctypes.CDLL:
+    lib = build.load("fr_inverse")
+    if not getattr(lib, "_zk_typed", False):
+        lib.zk_fr_batch_inverse.argtypes = [_P, _P, _P, _P, _I, _P, ctypes.c_int]
+        lib.zk_fr_batch_inverse.restype = ctypes.c_int
+        lib.zk_fr_batch_inverse_chunks.argtypes = [_I]
+        lib.zk_fr_batch_inverse_chunks.restype = _I
         lib._zk_typed = True
     return lib
 
@@ -340,3 +355,78 @@ def dot_many(pairs) -> torch.Tensor:
     ptr = {k: (t.data_ptr(), t.stride(0)) for k, t in unit.items()}
     ops = [(*ptr[id(a)], 0, *ptr[id(b)], 0) for a, b in pairs]
     return _dot_launch(ops, shape[1], 1, ts[0].device)
+
+
+# ---------------------------------------------------------------------------
+# K7: batched inversion
+# ---------------------------------------------------------------------------
+
+_P_MINUS_2 = SPEC.p - 2
+
+
+def _scan_plain(p: torch.Tensor, reverse: bool) -> torch.Tensor:
+    """Inclusive prefix (or suffix) products of planar (8, n) by doubling
+    steps of the plain product."""
+    n = p.shape[1]
+    d = 1
+    while d < n:
+        q = p.clone()
+        if reverse:
+            q[:, : n - d] = mul_plain(p[:, : n - d].contiguous(), p[:, d:].contiguous())
+        else:
+            q[:, d:] = mul_plain(p[:, d:].contiguous(), p[:, : n - d].contiguous())
+        p, d = q, 2 * d
+    return p
+
+
+def _pow_plain(a: torch.Tensor, e: int) -> torch.Tensor:
+    """a^e of planar (8, k), Montgomery, left to right over e's bits."""
+    acc = torch.from_numpy(SPEC.ONE_mont.reshape(N_LIMBS, 1)).to(a.device).expand(a.shape).contiguous()
+    for b in range(e.bit_length() - 1, -1, -1):
+        acc = mul_plain(acc, acc)
+        if (e >> b) & 1:
+            acc = mul_plain(acc, a)
+    return acc
+
+
+def batch_inverse_plain(x: torch.Tensor) -> torch.Tensor:
+    """Elementwise inverse of (n, 8) Montgomery rows, plain PyTorch:
+    Montgomery's trick with prefix and suffix products by doubling steps
+    and one Fermat power of the total, out_i = pre_(i-1) * total^-1 *
+    suf_(i+1). A zero anywhere makes every output zero (lookup.py)."""
+    n = x.shape[0]
+    p = x.transpose(0, 1).contiguous()  # (8, n)
+    if n == 0:
+        return x.clone()
+    pre, suf = _scan_plain(p, False), _scan_plain(p, True)
+    tinv = _pow_plain(pre[:, n - 1 :], _P_MINUS_2)
+    one = torch.from_numpy(SPEC.ONE_mont.reshape(N_LIMBS, 1)).to(x.device)
+    left = torch.cat([one, pre[:, : n - 1]], dim=1)
+    right = torch.cat([suf[:, 1:], one], dim=1)
+    out = mul_plain(mul_plain(left, right), tinv.expand(N_LIMBS, n).contiguous())
+    return out.transpose(0, 1).contiguous()
+
+
+def batch_inverse(x: torch.Tensor) -> torch.Tensor:
+    """x^-1 elementwise for (n, 8) uint32 Montgomery rows (the JAX function
+    takes them nonzero): K7 on a CUDA tensor (two launches, counted as one
+    call), the plain version on a CPU one. A zero input makes every output
+    zero, as in the JAX function."""
+    if x.dtype != torch.uint32 or x.dim() != 2 or x.shape[1] != N_LIMBS:
+        raise ValueError(f"batch_inverse: expected uint32 (n, 8) rows, got {x.dtype} {tuple(x.shape)}")
+    if not _on_cuda(x):
+        return batch_inverse_plain(x)
+    n = x.shape[0]
+    out = torch.empty_like(x)
+    if n:
+        x = x.contiguous()
+        lib = _inverse_lib()
+        scratch = torch.empty((3 * lib.zk_fr_batch_inverse_chunks(n) * N_LIMBS,), dtype=torch.uint32,
+                              device=x.device)
+        counter = torch.zeros((1,), dtype=torch.int32, device=x.device)
+        idx = x.device.index
+        rc = lib.zk_fr_batch_inverse(x.data_ptr(), out.data_ptr(), scratch.data_ptr(), counter.data_ptr(), n,
+                                     torch._C._cuda_getCurrentRawStream(idx), idx)
+        _check(rc, "fr_batch_inverse")
+        INVERSE.launches += 1
+    return out

@@ -248,29 +248,6 @@ def normalize_digits(cols: torch.Tensor) -> torch.Tensor:
     return (cols + cin[:-1]) & M16
 
 
-@functools.lru_cache(maxsize=None)
-def _scatter(D: int, device: torch.device) -> torch.Tensor:
-    """0/1 float64 (2D - 1, D*D): row k sums the products a_i b_j, i + j = k."""
-    S = torch.zeros((2 * D - 1, D * D), dtype=torch.float64)
-    for i in range(D):
-        for j in range(D):
-            S[i + j, i * D + j] = 1.0
-    return S.to(device)
-
-
-def _columns(ad: torch.Tensor, bd: torch.Tensor, n_cols: int) -> torch.Tensor:
-    """Schoolbook column sums of two digit tensors (D, ...); columns >= n_cols
-    dropped. One float64 matrix product against a 0/1 scatter matrix: each
-    digit product < 2^32 and a column sums <= 24 of them (< 2^37), so every
-    value is an integer below 2^53 and the float64 arithmetic is exact."""
-    D = ad.shape[0]
-    prod = (ad.to(torch.float64).unsqueeze(1) * bd.to(torch.float64).unsqueeze(0)).reshape(D * D, -1)
-    cols = (_scatter(D, ad.device) @ prod).to(torch.int64).reshape(2 * D - 1, *ad.shape[1:])
-    if n_cols <= 2 * D - 1:
-        return cols[:n_cols]
-    return torch.cat([cols, torch.zeros_like(cols[: n_cols - 2 * D + 1])])
-
-
 def digit_sums(x: torch.Tensor) -> torch.Tensor:
     """(L, ..., n) int64 limbs -> (2L, ...) sums of each 16-bit digit over the
     last axis (exact in int64 for n < 2^24)."""
@@ -300,15 +277,50 @@ def reduce_digit_sums(spec: FieldSpec, cols: torch.Tensor, lift) -> torch.Tensor
     return mod_add(spec.P_limbs, low, lift(hi))
 
 
+@functools.lru_cache(maxsize=None)
+def _toeplitz(digits: tuple, n_rows: int, device: torch.device) -> torch.Tensor:
+    """float64 (n_rows, D): row k holds the constant's digit k - i in column
+    i, so T @ x gives the column sums of x times the constant (< 2^37)."""
+    D = len(digits)
+    T = torch.zeros((n_rows, D), dtype=torch.float64)
+    for k in range(n_rows):
+        for i in range(D):
+            if 0 <= k - i < D:
+                T[k, i] = float(digits[k - i])
+    return T.to(device)
+
+
+def _columns_const(x: torch.Tensor, const_int: int, n_cols: int) -> torch.Tensor:
+    """Column sums of the digits x (D, ...) times a constant, columns >=
+    n_cols dropped: one float64 product with its Toeplitz matrix (exact)."""
+    D = x.shape[0]
+    T = _toeplitz(tuple(int(v) for v in digits_from_int(const_int, D)), min(n_cols, 2 * D - 1), x.device)
+    cols = (T @ x.reshape(D, -1).to(torch.float64)).to(torch.int64).reshape(T.shape[0], *x.shape[1:])
+    if n_cols <= 2 * D - 1:
+        return cols
+    return torch.cat([cols, torch.zeros_like(cols[: n_cols - 2 * D + 1])])
+
+
+def _columns_var(ad: torch.Tensor, bd: torch.Tensor) -> torch.Tensor:
+    """Schoolbook column sums of two digit tensors (D, ...), 2D - 1 columns:
+    one shifted multiply-add per digit of a (int64, each column < 2^37)."""
+    D = ad.shape[0]
+    cols = torch.zeros((2 * D - 1, *ad.shape[1:]), dtype=torch.int64, device=ad.device)
+    for i in range(D):
+        cols[i : i + D] += ad[i] * bd
+    return cols
+
+
 def mont_mul(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a*b*R^-1 mod p on limb-leading int64 tensors (L, ...); full-word REDC in
     radix 2^16 (zkdl_tpu/field/mp.py:mont_mul). Requires a*b < p*R."""
     D = spec.n_digits
     a, b = torch.broadcast_tensors(a, b)
-    T = normalize_digits(_columns(to_digits(a), to_digits(b), 2 * D))  # a*b < p*R
+    cols = _columns_var(to_digits(a), to_digits(b))
+    T = normalize_digits(torch.cat([cols, torch.zeros_like(cols[:1])]))  # a*b < p*R: 2D digits
     low = T[:D]
-    m = normalize_digits(_columns(low, const(digits_from_int(spec.np_full, D), low).expand_as(low), D))
-    total = _columns(m, const(digits_from_int(spec.p, D), m).expand_as(m), 2 * D + 1)
+    m = normalize_digits(_columns_const(low, spec.np_full, D))
+    total = _columns_const(m, spec.p, 2 * D + 1)
     total[: 2 * D] += T
     r = from_digits(normalize_digits(total)[D : 2 * D])  # (T + m p) / R < 2p
     return sub_p_if_gte(spec.P_limbs, r)

@@ -1,4 +1,6 @@
-"""Proof serialization: the npz schema of ``zkdl_tpu/io/proof_io.py`` (:30-125).
+"""Proof serialization: the npz schema of ``zkdl_tpu/io/proof_io.py`` (:30-125),
+for the MLP's proofs and the attention block's (with the softmax, lookup,
+rescale and committed-witness classes inside it).
 
 ``dump_proof`` writes a proof tree (dataclasses, NamedTuples, lists,
 tensors) to one ``.npz``: every array under a key ``a{i}`` (the paths in
@@ -21,14 +23,21 @@ import numpy as np
 import torch
 
 from ..commit.pedersen import FoldOpening, OpeningProof, RowCommitments
+from ..commit.witness import Opening, WitnessSet
 from ..curve.g1 import G1Jac
 from ..models.mlp import MLPProof
+from ..models.zkattention import MatmulProof, ZkAttentionProof
 from ..models.zkfc import ZkFCProof
 from ..models.zkrelu import AuxCommitments, ZkReluProof
+from ..models.zkrescale import RescaleBinding
+from ..models.zksoftmax import RangeProof, RowSumProof, ZeroProductProof, ZkSoftmaxProof
+from ..sumcheck.lookup import LookupProof
 from ..utils.runtime import resolve_device
 
-_CLASSES = {c.__qualname__: c for c in (MLPProof, ZkFCProof, ZkReluProof, OpeningProof, G1Jac, AuxCommitments,
-                                         RowCommitments, FoldOpening)}
+_CLASSES = {c.__qualname__: c for c in (
+    MLPProof, ZkFCProof, ZkReluProof, OpeningProof, G1Jac, AuxCommitments, RowCommitments, FoldOpening,
+    ZkAttentionProof, MatmulProof, RescaleBinding, ZkSoftmaxProof, RangeProof, RowSumProof, ZeroProductProof,
+    LookupProof, WitnessSet, Opening)}
 _PACKAGES = ("zkdl_tpu", "zkdl_tpu_torch")
 
 

@@ -1,4 +1,4 @@
-"""Build the port's layers from a JAX layer's parameters.
+"""Build the port's layers, MLP and attention block from a JAX model's parameters.
 
 The weights and generator dlogs arrive as numpy uint32 arrays (``ZkFC.weights``
 (in*out, 8) and ``ZkFC.gens.dlogs`` (gen, 8), both Montgomery); the port
@@ -16,6 +16,7 @@ import torch
 from ..commit import pedersen
 from ..utils.runtime import resolve_device
 from .mlp import MLP
+from .zkattention import ZkAttention
 from .zkfc import ZkFC
 
 
@@ -34,3 +35,12 @@ def layer_from_arrays(weights_mont, dlogs, in_size: int, out_size: int, device="
 def mlp_from_arrays(layers: Sequence[tuple], device="cuda") -> MLP:
     """layers: [(weights_mont, dlogs, in_size, out_size), ...]."""
     return MLP([layer_from_arrays(*l, device=device) for l in layers])
+
+
+def attention_from_arrays(seq: int, layers: Sequence[tuple], device="cuda") -> ZkAttention:
+    """A JAX ZkAttention's four projections wq, wk, wv, wo, each
+    (weights_mont, dlogs, d_model, d_model), as the port's block."""
+    if len(layers) != 4:
+        raise ValueError(f"an attention block has 4 projections, got {len(layers)}")
+    fcs = [layer_from_arrays(*l, device=device) for l in layers]
+    return ZkAttention(seq, fcs[0].in_size, *fcs)

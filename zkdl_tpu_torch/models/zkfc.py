@@ -1,10 +1,14 @@
 """zkFC: quantized fully-connected layer (exact field matmul) + its prover.
 
-Counterpart of ``zkdl_tpu/models/zkfc.py``: ``_signed_digits``,
-``_combine_columns``, ``_lift_cols_to_mont``, ``field_matmul_fast``
-(:86-195), ``ZkFC`` (:202-233), ``ZkFCProof``, ``_fc_prep_planar``
-(:260-292), ``prove_planar`` (grouped and round-interleaved, :313-372) and
-``verify`` (:375-397).
+Counterpart of ``zkdl_tpu/models/zkfc.py``: ``field_matmul`` (:47),
+``_signed_digits``, ``_combine_columns``, ``_lift_cols_to_mont``,
+``field_matmul_fast`` (:86-195), ``ZkFC`` (:202-233), ``ZkFCProof``,
+``_fc_prove_core`` (:248), ``_fc_prep_planar`` (:260-292), ``prove``
+(:295), ``prove_planar`` (grouped and round-interleaved, :313-372) and
+``verify`` (:375-397). ``prove`` is ``prove_planar`` without a chain point:
+the same draws and stream, with the opening ``pedersen.open_planar``, which
+emits ``pedersen.open``'s proof on the transparent setup (the JAX package
+asserts both equalities).
 
 Forward: every operand lies in (-2^47, 2^47) (the protocol's own bound), so
 Z = X @ W over Fr is computed exactly from 7-bit signed digits with two int8
@@ -30,6 +34,26 @@ from ..tensor import planar_ops as pops
 _N_DIGITS = 7  # 7-bit digits x 7 = 49 bits, covers the 48-bit bound
 _DIGIT_BITS = 7
 _N_COLS = 2 * _N_DIGITS - 1
+
+
+_MATMUL_CHUNK = 1 << 22  # products per K3 launch of field_matmul (bounds its operand copies)
+
+
+def field_matmul(X: torch.Tensor, W: torch.Tensor, in_size: int, out_size: int) -> torch.Tensor:
+    """Z = X @ W over Fr (Montgomery), exact for any operands: X (batch*in,
+    8), W (in*out, 8) -> (batch*out, 8). Each output is one lazy dot (K3)
+    over the in axis, a chunk of output rows per launch."""
+    batch = X.shape[0] // in_size
+    Xp = planar.to_planar(X).reshape(8, batch, 1, in_size)
+    Wt = planar.to_planar(W).reshape(8, in_size, out_size).transpose(1, 2).reshape(8, 1, out_size, in_size)
+    rows = max(1, _MATMUL_CHUNK // max(1, out_size * in_size))
+    parts = []
+    for lo in range(0, batch, rows):
+        k = min(rows, batch - lo)
+        a = Xp[:, lo : lo + k].expand(8, k, out_size, in_size).reshape(8, k * out_size, in_size)
+        b = Wt.expand(8, k, out_size, in_size).reshape(8, k * out_size, in_size)
+        parts.append(planar.dot(a, b))
+    return planar.from_planar(torch.cat(parts, dim=1)).contiguous()
 
 
 def _signed_digits(v: torch.Tensor):
@@ -60,10 +84,12 @@ def _signed_digits(v: torch.Tensor):
 
 def _int8_matmul(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """int8 (m, k) @ (k, n) -> int32, exact. torch._int_mm on the card needs
-    m > 16 and k, n multiples of 8: pad with zeros and cut the result."""
+    m > 16 and k, n multiples of 8, and cuBLASLt refuses some row counts
+    that are not a multiple of 32 (28 rows, at batch 4): pad with zeros and
+    cut the result."""
     m, k = A.shape
     n = B.shape[1]
-    mp_, kp, np_ = max(m, 24), -(-k // 8) * 8, -(-n // 8) * 8
+    mp_, kp, np_ = -(-m // 32) * 32, -(-k // 8) * 8, -(-n // 8) * 8
     if (mp_, kp) != (m, k):
         A = torch.nn.functional.pad(A, (0, kp - k, 0, mp_ - m))
     if (kp, np_) != (k, n):
@@ -182,6 +208,22 @@ def _fc_prep_planar(X, W, Z, u_bs, u_out, in_size, out_size):
     Zp = planar.to_planar(fr_ops.pad_to(Z, 1 << u_full.shape[0]))
     z_claim = planar.dot(Zp, pops.eq_table(u_full, dev))
     return X_folded, W_folded, z_claim
+
+
+def fc_prove_core(X, W, Z, u_bs, u_in, u_out, in_size: int, out_size: int):
+    """The matmul sumcheck (zkfc.py:_fc_prove_core): X folded along the
+    batch axis at u_bs, W along the out axis at u_out, the inner-product
+    sumcheck over u_in, and the output claim Z(u_out || u_bs). Returns
+    (ip_polys, ip_finals, z_claim)."""
+    X_folded, W_folded, z_claim = _fc_prep_planar(X, W, Z, mp.host(u_bs), mp.host(u_out), in_size, out_size)
+    ip_polys, ip_finals = pp.inner_product_prove(X_folded, W_folded, mp.host(u_in))
+    return ip_polys, ip_finals, z_claim
+
+
+def prove(layer: ZkFC, X: torch.Tensor, Z: torch.Tensor, challenges: ChallengeSource) -> ZkFCProof:
+    """zkfc.py:prove: draws (u_bs, u_in, u_out), the matmul sumcheck, the
+    weight opening at u_out || u_in; absorbs ip_polys and z_claim."""
+    return prove_planar(layer, X, Z, challenges)
 
 
 def prove_planar(layer: ZkFC, X: torch.Tensor, Z: torch.Tensor, challenges: ChallengeSource,

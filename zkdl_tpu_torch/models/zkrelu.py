@@ -116,10 +116,7 @@ def _expand_aux_bits(sign_bits, mag, rem_bits16, q: int, r: int):
     return sign_bits, mp.u32(mag_bits.reshape(-1)), mp.u32(rem_bits.reshape(-1))
 
 
-def _mont_bits(bits: torch.Tensor) -> torch.Tensor:
-    """(N,) 0/1 uint32 -> (N, 8) Montgomery Fr: mont(1) where set, else 0."""
-    one = torch.from_numpy(fr.ONE_MONT.view(np.int32)).to(bits.device)
-    return torch.where((bits.view(torch.int32) != 0)[:, None], one, 0).view(torch.uint32)
+_mont_bits = fr_ops.mont_bits  # (N,) 0/1 uint32 -> (N, 8) Montgomery Fr
 
 
 def _expand_aux(sign_bits, mag, rem_bits16, q: int, r: int):
@@ -497,3 +494,25 @@ def verify_committed(proof: ZkReluProof) -> tuple[bool, str]:
         if not ok:
             return False, f"{what}: {msg}"
     return True, ""
+
+
+def compact_aux(aux: dict) -> dict:
+    """The reference convention's expanded aux (sign (n, 8), mag_bin
+    (n*Q, 8), rem_bin (n*R, 8), Montgomery 0/1, bit k of element j at
+    j*Q + k) -> the compact aux of forward_compact."""
+    n = aux["sign"].shape[0]
+    dev = aux["sign"].device
+
+    def word(bin_t, width):
+        bits = (mp.i64(bin_t) != 0).any(-1).reshape(n, width).to(torch.int64)
+        return mp.u32((bits << torch.arange(width, device=dev)).sum(-1))
+
+    return {"sign_bits": mp.u32((mp.i64(aux["sign"]) != 0).any(-1).to(torch.int64)),
+            "mag": word(aux["mag_bin"], Q), "rem_bits16": word(aux["rem_bin"], R)}
+
+
+def prove(X: torch.Tensor, aux: dict, challenges: ChallengeSource) -> ZkReluProof:
+    """zkrelu.py:prove on the expanded aux (:308-350): the draw order and
+    stream of prove_planar without a chain point, which the JAX package
+    asserts equal (zkrelu.py:424)."""
+    return prove_planar(X, compact_aux(aux), challenges)

@@ -17,7 +17,9 @@ reach the kernels by value. Each round is its polynomial (``_*_round_poly``)
 then its fold (``_fold_half``, ``_fold_bits0``). One loop per protocol runs
 them for the grouped provers, which take every challenge up front, and for
 the round-interleaved ones (:368-446 of the JAX file), which absorb each
-round's polynomial before drawing its fold challenge.
+round's polynomial before drawing its fold challenge. Binary and Hadamard
+take a bit operand packed (its round 0 specialised) or a general planar one
+(round 0 the general round, its scale 1).
 """
 
 from __future__ import annotations
@@ -217,17 +219,24 @@ def _ip_rounds(a_rev, b_rev, r, next_challenge):
     return (torch.stack(polys) if polys else _empty_polys(a_rev.device)), finals
 
 
-def _bin_rounds(bits_rev, u, next_challenge):
+def _bin_rounds(a_rev, u, next_challenge):
+    """a_rev: packed bits (bool (2^r,)), whose round 0 is multiplication-free,
+    or a general planar (8, 2^r) operand."""
     r = u.shape[0]
-    if bits_rev.shape[0] != (1 << r):
-        raise ValueError(f"binary_prove_bits: size {bits_rev.shape[0]} != 2^{r}")
-    dev = bits_rev.device
+    bits = a_rev.dtype == torch.bool
+    if a_rev.shape[-1] != (1 << r):
+        raise ValueError(f"binary_prove: size {a_rev.shape[-1]} != 2^{r}")
+    dev = a_rev.device
     if r == 0:
-        return _empty_polys(dev), _bit_final(bits_rev[0])
+        return _empty_polys(dev), (_bit_final(a_rev[0]) if bits else a_rev[:, 0])
     table = _eq_table(u[1:], dev)
     scales = host_scales(u)
-    p, neq = _bin_round0_poly(bits_rev, table)
-    a_rev = _fold_bits0(bits_rev, neq, next_challenge(0, p))
+    if bits:
+        p, neq = _bin_round0_poly(a_rev, table)
+        a_rev = _fold_bits0(a_rev, neq, next_challenge(0, p))
+    else:
+        p, d = _bin_round_poly(a_rev, table, scales[0])
+        a_rev = _fold_half(a_rev, d, next_challenge(0, p))
     polys = [p]
     for i in range(1, r):
         p, d = _bin_round_poly(a_rev, table[:, : a_rev.shape[1] // 2], scales[i])
@@ -236,19 +245,27 @@ def _bin_rounds(bits_rev, u, next_challenge):
     return torch.stack(polys), a_rev[:, 0]
 
 
-def _hp_rounds(a_rev, bits_rev, u, next_challenge):
+def _hp_rounds(a_rev, b_rev, u, next_challenge):
+    """b_rev: packed bits (bool (2^r,)), whose round 0 turns products into
+    selects, or a general planar (8, 2^r) operand."""
     r = u.shape[0]
     n = a_rev.shape[1]
-    if n != (1 << r) or bits_rev.shape[0] != n:
-        raise ValueError(f"hadamard_prove_bits: sizes {n}, {bits_rev.shape[0]} != 2^{r}")
+    bits = b_rev.dtype == torch.bool
+    if n != (1 << r) or b_rev.shape[-1] != n:
+        raise ValueError(f"hadamard_prove: sizes {n}, {b_rev.shape[-1]} != 2^{r}")
     dev = a_rev.device
     if r == 0:
-        return _empty_polys(dev), torch.stack([a_rev[:, 0], _bit_final(bits_rev[0])])
+        return _empty_polys(dev), torch.stack([a_rev[:, 0], _bit_final(b_rev[0]) if bits else b_rev[:, 0]])
     table = _eq_table(u[1:], dev)
     scales = host_scales(u)
-    p, da, neq = _hp_round0_poly(a_rev, bits_rev, table)
-    x = next_challenge(0, p)
-    a_rev, b_rev = _fold_half(a_rev, da, x), _fold_bits0(bits_rev, neq, x)
+    if bits:
+        p, da, neq = _hp_round0_poly(a_rev, b_rev, table)
+        x = next_challenge(0, p)
+        a_rev, b_rev = _fold_half(a_rev, da, x), _fold_bits0(b_rev, neq, x)
+    else:
+        p, da, db = _hp_round_poly(a_rev, b_rev, table, scales[0])
+        x = next_challenge(0, p)
+        a_rev, b_rev = _fold_half(a_rev, da, x), _fold_half(b_rev, db, x)
     polys = [p]
     for i in range(1, r):
         p, da, db = _hp_round_poly(a_rev, b_rev, table[:, : a_rev.shape[1] // 2], scales[i])
@@ -268,6 +285,18 @@ def binary_prove_bits(bits_rev, u, v):
     """Binary sumcheck on packed bits: bits_rev bool (2^r,) bit-rev storage;
     u, v host (r, 8). Returns (polys (r, 3, 8), final (8,))."""
     return _bin_rounds(bits_rev, mp.host(u), _given(v))
+
+
+def binary_prove(a_rev, u, v):
+    """Binary sumcheck on a general planar operand a_rev (8, 2^r), bit-rev
+    storage; u, v host (r, 8). Returns (polys (r, 3, 8), final (8,))."""
+    return _bin_rounds(a_rev, mp.host(u), _given(v))
+
+
+def hadamard_prove(a_rev, b_rev, u, v):
+    """Hadamard sumcheck of a (.) b, both general planar (8, 2^r) bit-rev;
+    u, v host (r, 8). Returns (polys (r, 3, 8), finals (2, 8))."""
+    return _hp_rounds(a_rev, b_rev, mp.host(u), _given(v))
 
 
 def hadamard_prove_bits(a_rev, bits_rev, u, v):

@@ -1,7 +1,13 @@
-"""Host (python-int) sumcheck verifiers and int converters.
+"""Sumcheck provers on natural-order (n, 8) tensors, host (python-int)
+verifiers and int converters.
 
-Copy of ``zkdl_tpu/sumcheck/protocols.py:301-371``. The provers are in
-``planar_protocols.py``; these check their streams on the host.
+Counterpart of ``zkdl_tpu/sumcheck/protocols.py``: ``inner_product_prove``,
+``hadamard_prove`` and ``binary_prove`` (:108-156), whose scan forms
+(:208-300) emit the same streams, and the verifiers (:301-371). The JAX
+provers pair neighbours a[0::2], a[1::2] of the natural order, padded with
+zeros to 2^r; here the operands go into bit-reversed planar storage once
+and the rounds run on the planar round code (``planar_protocols.py``),
+whose contiguous halves are those same pairs.
 """
 
 from __future__ import annotations
@@ -9,9 +15,43 @@ from __future__ import annotations
 import dataclasses
 from typing import Sequence
 
-from ..field import fr, host, mp
+import torch
+
+from ..field import fr, host, mp, planar
+from ..tensor import fr_ops
+from ..tensor import planar_ops as pops
+from . import planar_protocols as pp
 
 HF = host.fr
+
+
+def _rev(t: torch.Tensor, r: int) -> torch.Tensor:
+    """(m, 8) natural order, 2^(r-1) < m <= 2^r (or m = 1 for r = 0) ->
+    (8, 2^r) bit-reversed planar, zero-padded."""
+    m = t.shape[0]
+    if not ((1 << r) // 2 < m <= (1 << r)):
+        raise ValueError(f"sumcheck: {m} rows for {r} rounds")
+    return pops.bitrev_axis(planar.to_planar(fr_ops.pad_to(t, 1 << r)), axis=1).contiguous()
+
+
+def inner_product_prove(a: torch.Tensor, b: torch.Tensor, u):
+    """Prove sum_i a_i * b_i for (n, 8) Montgomery a, b; u host (r, 8).
+    Returns (polys (r, 3, 8), finals (2, 8)) (protocols.py:inner_product_prove)."""
+    r = u.shape[0]
+    return pp.inner_product_prove(_rev(a, r), _rev(b, r), mp.host(u))
+
+
+def hadamard_prove(a: torch.Tensor, b: torch.Tensor, u, v):
+    """Prove the elementwise-product relation at u, folding along v; (n, 8)
+    Montgomery a, b; u, v host (r, 8). Returns (polys, finals (2, 8))."""
+    r = u.shape[0]
+    return pp.hadamard_prove(_rev(a, r), _rev(b, r), u, v)
+
+
+def binary_prove(a: torch.Tensor, u, v):
+    """Prove every element is a bit at u, folding along v; (n, 8) Montgomery
+    a; u, v host (r, 8). Returns (polys (r, 3, 8), final (8,))."""
+    return pp.binary_prove(_rev(a, u.shape[0]), u, v)
 
 
 @dataclasses.dataclass

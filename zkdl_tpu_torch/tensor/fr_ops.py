@@ -1,7 +1,9 @@
-"""Shape helpers, keyed draws and the MLE evaluations of
-``zkdl_tpu/tensor/fr_ops.py`` (``me_step``/``me_eval`` :69-92,
-``partial_me_step``/``partial_me`` :95-126, ``random_fr`` :129,
-``random_int`` :140)."""
+"""Shape helpers, keyed draws, sums and the MLE evaluations of
+``zkdl_tpu/tensor/fr_ops.py`` (``fr_sum`` :43, ``me_step``/``me_eval``
+:69-92, ``partial_me_step``/``partial_me`` :95-126, ``random_fr`` :129,
+``random_int`` :140, ``from_u32`` :151), and the (n, 8) Montgomery tensors
+of small integers that the attention circuits build (``mont_from_u64``,
+``mont_bits``)."""
 
 from __future__ import annotations
 
@@ -27,6 +29,87 @@ def pad_to(t: torch.Tensor, n: int) -> torch.Tensor:
         raise ValueError(f"pad_to: length {t.shape[0]} > {n}")
     pad = torch.zeros((n - t.shape[0], *t.shape[1:]), dtype=t.dtype, device=t.device)
     return torch.cat([t, pad], dim=0)
+
+
+def fr_sum(t: torch.Tensor) -> torch.Tensor:
+    """Modular sum of the (n, 8) elements -> (8,) (fr_ops.py:fr_sum; one
+    value whatever the order)."""
+    if t.shape[0] == 0:
+        return torch.zeros(8, dtype=torch.uint32, device=t.device)
+    return planar.lazy_sum(planar.to_planar(t)).contiguous()
+
+
+def from_u32(vals: torch.Tensor) -> torch.Tensor:
+    """Lift (n,) integers below 2^32 into (n, 8) raw Fr limbs."""
+    out = torch.zeros((*vals.shape, 8), dtype=torch.int64, device=vals.device)
+    out[..., 0] = mp.i64(vals) if vals.dtype == torch.uint32 else vals.to(torch.int64) & mp.M32
+    return mp.u32(out)
+
+
+def _rows(p: torch.Tensor) -> torch.Tensor:
+    return planar.from_planar(p).contiguous()
+
+
+def add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise (a + b) mod p of (n, 8) tensors (b may broadcast)."""
+    return _rows(planar.add(planar.to_planar(a), planar.to_planar(b)))
+
+
+def sub(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return _rows(planar.sub(planar.to_planar(a), planar.to_planar(b)))
+
+
+def neg(a: torch.Tensor) -> torch.Tensor:
+    return _rows(planar.neg(planar.to_planar(a)))
+
+
+def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise Montgomery product of (n, 8) tensors (K1); b may
+    broadcast."""
+    a, b = torch.broadcast_tensors(a, b)
+    return _rows(planar.mul(planar.to_planar(a), planar.to_planar(b)))
+
+
+def ones_mont(n: int, device) -> torch.Tensor:
+    """(n, 8) Montgomery ones."""
+    return _rows(planar.ones_mont(n, device))
+
+
+def const(limbs, n: int, device) -> torch.Tensor:
+    """(n, 8) copies of one host element."""
+    return _rows(planar.const(limbs, n, device))
+
+
+def to_mont(t: torch.Tensor) -> torch.Tensor:
+    """(n, 8) raw -> (n, 8) Montgomery (K2)."""
+    return planar.from_planar(planar.to_mont(planar.to_planar(t))).contiguous()
+
+
+def mont_from_u64(vals, device) -> torch.Tensor:
+    """(n,) unsigned integers (numpy) -> (n, 8) Montgomery Fr of their LOW 32
+    bits. The JAX package builds these tensors with 64-bit types disabled
+    (``zksoftmax._mont_from_u64``: ``jnp.asarray`` of a uint64 array keeps
+    the low 32 bits and the high limb shifts out to 0), so the port keeps
+    exactly those bits."""
+    low = torch.from_numpy(np.asarray(vals).astype(np.uint64) & np.uint64(0xFFFFFFFF)).to(torch.int64)
+    return to_mont(from_u32(low.to(device)))
+
+
+def bits_of(vals, width: int, device) -> torch.Tensor:
+    """(n,) unsigned integers (numpy) -> (n * width,) 0/1 uint32, bit k of
+    element j at j * width + k, from the LOW 32 bits of each value
+    (zksoftmax._bits_tensor: 64-bit types are disabled there, so bits 32
+    and up are 0)."""
+    low = torch.from_numpy(np.asarray(vals).astype(np.uint64) & np.uint64(0xFFFFFFFF)).to(torch.int64).to(device)
+    shifts = torch.arange(width, device=device)
+    bits = torch.where(shifts < 32, (low[:, None] >> shifts.clamp(max=31)) & 1, 0)
+    return mp.u32(bits.reshape(-1))
+
+
+def mont_bits(bits: torch.Tensor) -> torch.Tensor:
+    """(N,) 0/1 uint32 -> (N, 8) Montgomery Fr: mont(1) where set, else 0."""
+    one = torch.from_numpy(fr.ONE_MONT.view(np.int32)).to(bits.device)
+    return torch.where((bits.view(torch.int32) != 0)[:, None], one, 0).view(torch.uint32)
 
 
 def random_fr(key: np.ndarray, n: int, device) -> torch.Tensor:
