@@ -8,10 +8,11 @@ builds and runs.
     python3 chip_smoke.py --var-times   # K4, K5 and K6 times only, at the verify's and the
                                         # commitments' shapes on seeded data
     python3 chip_smoke.py --attention   # phase 1, K7 against plain, and phase 7 alone
+    python3 chip_smoke.py --k7-times    # K7 times only, on seeded inputs
 
-`--comb` and `--var-times` time K4 (and K5, K6) on the same seeded inputs in
-any checkout of the port they are copied into, so that two versions can be
-compared in one call.
+`--comb`, `--var-times` and `--k7-times` time K4 (and K5, K6; K7) on the same
+seeded inputs in any checkout of the port they are copied into, so that two
+versions can be compared in one call.
 
 Phases (each prints its own lines; any failure exits nonzero):
   1. the card's name and power limit, the host CPU's model; build of every
@@ -76,9 +77,12 @@ Phases (each prints its own lines; any failure exits nonzero):
      every witness committed) through bench.run: build, forward, warm and
      steady proves, one more prove for the stage seconds, the proof's size, the verify
      with Fiat-Shamir replay and the X/Y anchors, the launches of every
-     kernel in the run (all > 0, K7 among them); K7 (batch inversion) bit
-     for bit against plain at n = 1, 2, 5, 4096 (also with a zero input)
-     and 16,384 and timed at the lookup's two sizes beside its bound; three
+     kernel in the run (all > 0, K7 among them, one K7 call a prove); K7
+     (batch inversion) bit for bit against plain at n = 1, 2, 5, 4096 (also
+     with a zero input) and 16,384, on the GCD's edge inputs (each alone and
+     together), and in the lookup's one call over both sides (16,384 +
+     4,096, also with a zero in one side only), timed at 1, 4096, 16,384
+     and the two sides in one call beside its bound; three
      tampered copies rejected with the reasons of the JAX verifier on the
      recorded tiny proof (tests/port/fixtures/attention_jax.json); K5 and
      K6 held against plain and timed at the witness commitments' launches;
@@ -1369,15 +1373,79 @@ ATTENTION_FAULTS = [
      "mm_s: at.mm_s.fa: binding: generator MSM != row-commitment MLE at u_row"),
     ("committed_wrong_Y", None, None, ("X", "Y_bad"), "public Y anchor mismatch"),
 ]
-K7_SIZES = (1, 2, 5, 4096, 16384)  # one element (the Fermat power alone), odd, the table and the witness side
-K7_FERMAT = 255 + 128  # products of one Fermat power: a squaring a bit of p - 2 and a product a set bit (~128)
+K7_SIZES = (1, 2, 5, 4096, 16384)  # one element (the inverse alone), odd, the table and the witness side
+K7_SEGMENTS = (16384, 4096)  # the lookup's one call at seq 128: the witness side, then the table side
+# The multiply-adds of K7's GCD (csrc/fr_inverse.cu): a batch's update_de
+# (its d and e rows: 6 wide products a limb, + 2 at limb 0 for md, me and
+# their two 32-bit products) and update_fg (4 wide products a limb), a wide
+# product counted as 2 (lo + hi); each trip of divsteps30's inner loop makes
+# 8 32-bit products (two Newton steps, w, and g, q, r += w times f, u, v)
+K7_BATCH_IMAD = (2 * 2 * 2 + 2 + 2 * 2 + 8 * 6 * 2) + (2 * 2 * 2 + 8 * 4 * 2)
+K7_TRIP_IMAD = 8
+K7_MAX_BATCHES = 25
+# the input of the most divstep batches in the seeded search of
+# tests/port/test_torch_lookup.py (GCD_SLOWEST there): 19 batches of 30
+K7_GCD_SLOWEST = 0x73227B5DE2E79A360ED5B065AE09D832F5A9EBD42DED0059A2833BC4183570D
 
 
-def k7_bound(n: int) -> tuple[float, str]:
-    """Each input read and output written once (64 B an element); three
-    products an element (a prefix, and two on the way back) and the Fermat
-    power."""
-    return bound_ms(64 * n, FR_MUL_IMAD * (3 * n + K7_FERMAT))
+def k7_gcd_imads(a: int) -> int:
+    """The multiply-adds of K7's GCD of a (canonical words): the batches of
+    30 divsteps and the inner trips that this input takes, as divsteps30
+    runs them on the low 30-bit limbs of f and g (0 for a = 0)."""
+    from zkdl_tpu_torch.field import fr
+
+    m30, u32 = (1 << 30) - 1, (1 << 32) - 1
+    f, g, eta, imads = fr.P_INT, a, -1, 0
+    for _ in range(K7_MAX_BATCHES if a else 0):
+        u, v, q, r, i, lf, lg = 1, 0, 0, 1, 30, f & m30, g & m30
+        while True:
+            low = lg | ((u32 << i) & u32)
+            z = (low & -low).bit_length() - 1
+            lg, u, v, eta, i = lg >> z, (u << z) & u32, (v << z) & u32, eta - z, i - z
+            if i == 0:
+                break
+            imads += K7_TRIP_IMAD
+            if eta < 0:
+                eta, lf, lg, u, q, v, r = -eta, lg, -lf & u32, q, -u & u32, r, -v & u32
+            mask = (u32 >> (32 - min(eta + 1, i))) & 255
+            finv = lf * (2 - lf * lf) & u32
+            finv = finv * (2 - lf * finv) & u32
+            w = lg * (-finv & u32) & mask
+            lg, q, r = (lg + lf * w) & u32, (q + u * w) & u32, (r + v * w) & u32
+        u, v, q, r = (c - (1 << 32) if c >> 31 else c for c in (u, v, q, r))
+        f, g, imads = (u * f + v * g) >> 30, (q * f + r * g) >> 30, imads + K7_BATCH_IMAD
+        if g == 0:
+            break
+    return imads
+
+
+def k7_bound(xs) -> tuple[float, str]:
+    """K7 over the segments xs: each input read and output written once (64
+    B an element); a segment of n elements needs 3 (n - 1) products
+    (Montgomery's trick: a prefix, and two on the way back), one GCD of its
+    product, counted for this run's data, and the product by C."""
+    from zkdl_tpu_torch.field import fr
+
+    p, r_inv = fr.P_INT, pow(1 << 256, -1, fr.P_INT)
+    n_bytes, imads = 0, 0
+    for x in xs:
+        n, root = x.shape[0], 1
+        for v in fr.to_ints(x.cpu().numpy()):
+            root = root * v % p
+        root = root * pow(r_inv, n - 1, p) % p  # the Montgomery product of the segment
+        n_bytes += 64 * n
+        imads += FR_MUL_IMAD * (3 * (n - 1) + 1) + k7_gcd_imads(root)
+    return bound_ms(n_bytes, imads)
+
+
+def k7_edges() -> list[int]:
+    """The GCD's edge inputs (canonical words, read by K7 as Montgomery
+    forms): 1, 2, p - 1, p - 2, R mod p, R^-1 mod p, (p + 1) / 2, powers of
+    two, the seeded search's slowest input."""
+    from zkdl_tpu_torch.field import fr
+
+    p, R = fr.P_INT, 1 << 256
+    return [1, 2, p - 1, p - 2, R % p, pow(R, -1, p), (p + 1) // 2, K7_GCD_SLOWEST] + [1 << k for k in range(0, 255, 9)]
 
 
 def _nonzero_fr(rng, n: int, device):
@@ -1390,12 +1458,71 @@ def _nonzero_fr(rng, n: int, device):
     return torch.from_numpy(a).to(device)
 
 
-def phase_k7(records: dict) -> None:
-    """K7 bit-equal to plain at K7_SIZES and with a zero input (every output
-    zero); timed at the lookup's sizes, 4096 (the table) and 16,384 (the
-    witness at seq 128), beside its bound."""
-    import torch
+def k7_time_sets(dev) -> dict:
+    """Seeded inputs of K7's timed shapes: one element, the table and the
+    witness side alone, and both in one call."""
+    rng = np.random.default_rng(10)
+    xs = {n: _nonzero_fr(rng, n, dev) for n in (1, 4096, 16384)}
+    return {"1": [xs[1]], "4096": [xs[4096]], "16384": [xs[16384]],
+            "16384 + 4096": [xs[16384], xs[4096]]}
+
+
+def k7_call(xs):
+    """K7 over the segments xs as the lookup calls it: one segmented call,
+    or, in a checkout that predates it, a call a segment."""
     from zkdl_tpu_torch.field import kernels
+
+    many = getattr(kernels, "batch_inverse_many", None)
+    if many is not None:
+        return lambda: many(xs)
+    return lambda: [kernels.batch_inverse(x) for x in xs]
+
+
+def queued_ms(fn, iters: int = 50) -> float | None:
+    """Device ms a call of fn, the calls queued behind a sleeping kernel so
+    that the host's time to enqueue them (the Python wrapper) does not show;
+    None where torch has no torch.cuda._sleep."""
+    import torch
+
+    if not hasattr(torch.cuda, "_sleep"):
+        return None
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)  # ~50 ms at the card's clock: longer than enqueueing the calls
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def phase_k7_times(dev, sets: dict | None = None) -> dict:
+    """K7 timed on k7_time_sets beside its bound: `ms` over 50 calls back to
+    back (CUDA events, the wrapper's host time included where it is the
+    longer), `queued_ms` with the calls queued ahead."""
+    sets = sets or k7_time_sets(dev)
+    out = {}
+    for label, xs in sets.items():
+        fn = k7_call(xs)
+        bms, by = k7_bound(xs)
+        ms, qms = cuda_ms(fn, 50), queued_ms(fn, 50)
+        out[label] = {"ms": ms, "queued_ms": qms, "bound_ms": bms, "bound_by": by}
+        log(f"[k7] fr_batch_inverse at {label}: {ms:.4f} ms ({'not measured' if qms is None else f'{qms:.4f}'} ms "
+            f"queued; bound {bms:.6f} ms by {by}, {100 * bms / ms:.3f}% of it)")
+    return out
+
+
+def phase_k7(records: dict) -> None:
+    """K7 bit-equal to plain at K7_SIZES, with a zero input (every output
+    zero), on the GCD's edge inputs (each alone, the inverse without a tree,
+    and all in one call), and in the lookup's segmented call (16,384 +
+    4,096), also with a zero in one segment only (that segment zero, the
+    other right); timed at 1, 4096, 16,384 and the segmented call beside
+    its bound."""
+    import torch
+    from zkdl_tpu_torch.field import fr, kernels
 
     rng = np.random.default_rng(9)
     dev = torch.device("cuda")
@@ -1403,25 +1530,46 @@ def phase_k7(records: dict) -> None:
     zero = _nonzero_fr(rng, 4096, dev)
     zero[1234] = 0
     inputs["4096 with a zero"] = zero
-    err = 0
+    edges = torch.from_numpy(fr.from_ints(k7_edges())).to(dev)
+    inputs[f"{edges.shape[0]} edge inputs"] = edges
+    err, plain, plain_ms = 0, {}, {}
     for n, x in inputs.items():
-        got, want = kernels.batch_inverse(x), kernels.batch_inverse_plain(x)
+        want, plain_ms[n] = plain_once(lambda: kernels.batch_inverse_plain(x))
+        got = kernels.batch_inverse(x)
         same(f"fr_batch_inverse at {n}", got, want)
-        err = max(err, max_abs_err(got, want))
-    if bool((kernels.batch_inverse(zero).view(torch.int32) != 0).any()):
+        err, plain[n] = max(err, max_abs_err(got, want)), want
+    if bool((plain["4096 with a zero"].view(torch.int32) != 0).any()):
         raise AssertionError("fr_batch_inverse: a zero input must make every output zero")
-    shapes = {}
-    for n in (4096, 16384):
-        x = inputs[n]
-        ms = cuda_ms(lambda: kernels.batch_inverse(x), 20)
-        _, pms = plain_once(lambda: kernels.batch_inverse_plain(x))
-        bms, by = k7_bound(n)
-        shapes[n] = {"ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by}
-        log(f"[attention] fr_batch_inverse at n={n}: {ms:.4f} ms (plain {pms:.2f} ms, bound {bms:.6f} ms by {by}, "
-            f"{100 * bms / ms:.3f}% of it)")
+    want_edges = plain[f"{edges.shape[0]} edge inputs"]
+    for i in range(edges.shape[0]):
+        same(f"fr_batch_inverse of edge input {i} alone", kernels.batch_inverse(edges[i : i + 1]), want_edges[i : i + 1])
+    a, t = inputs[K7_SEGMENTS[0]], inputs[K7_SEGMENTS[1]]
+    a_zero, t_zero = a.clone(), t.clone()
+    a_zero[777] = 0
+    t_zero[4095] = 0
+    cases = {"both": (a, t), "a zero in the first only": (a_zero, t), "a zero in the second only": (a, t_zero)}
+    for label, segs in cases.items():
+        got = kernels.batch_inverse_many(list(segs))
+        want = [plain[K7_SEGMENTS[0]] if segs[0] is a else kernels.batch_inverse_plain(a_zero),
+                plain[K7_SEGMENTS[1]] if segs[1] is t else kernels.batch_inverse_plain(t_zero)]
+        for k, (g, w) in enumerate(zip(got, want)):
+            same(f"fr_batch_inverse_many ({label}), segment {k}", g, w)
+            err = max(err, max_abs_err(g, w))
+    if bool((kernels.batch_inverse_many([a_zero, t])[0].view(torch.int32) != 0).any()):
+        raise AssertionError("fr_batch_inverse_many: a zero must zero its own segment")
+    small = [inputs[5], inputs[1], inputs[2], edges]  # segments of one block, one and two elements among them
+    for k, (g, x) in enumerate(zip(kernels.batch_inverse_many(small), small)):
+        same(f"fr_batch_inverse_many of 5, 1, 2 and {edges.shape[0]} elements, segment {k}", g, plain[x.shape[0]]
+             if x is not edges else want_edges)
     log(f"[attention] fr_batch_inverse bit-equal to plain at n = {', '.join(map(str, inputs))} (a zero input "
-        "gives all zeros, as the JAX function does)")
-    records["fr_batch_inverse"] = {**shapes[16384], "max_abs_err": err, "library_ms": None}
+        f"gives all zeros, as the JAX function does), on each edge input alone, and in one call of segments "
+        f"{' + '.join(map(str, K7_SEGMENTS))}, also with a zero in one segment (that segment zero, the other "
+        f"right), and of 5, 1, 2 and {edges.shape[0]} elements")
+    shapes = phase_k7_times(dev, {"1": [inputs[1]], "4096": [t], "16384": [a], "16384 + 4096": [a, t]})
+    for label, n in (("1", 1), ("4096", 4096), ("16384", 16384)):
+        shapes[label]["plain_ms"] = plain_ms[n]
+    shapes["16384 + 4096"]["plain_ms"] = plain_ms[16384] + plain_ms[4096]
+    records["fr_batch_inverse"] = {**shapes["16384 + 4096"], "max_abs_err": err, "library_ms": None}
     records["_fr_batch_inverse_shapes"] = shapes
 
 
@@ -1627,6 +1775,9 @@ def phase_attention(records: dict) -> None:
     for name, count in launches.items():
         if count <= 0:
             raise AssertionError(f"kernel {name} was not launched on the attention path")
+    if res["launches_per_prove"]["fr_batch_inverse"] != 1:
+        raise AssertionError(f"the attention prove made {res['launches_per_prove']['fr_batch_inverse']} K7 calls, "
+                             "expected 1 (the lookup's two sides in one call)")
     if (res["verify_ok"], res["verify_msg"]) != (True, ""):
         raise AssertionError(f"the port's verifier rejected the attention proof: {res['verify_msg']}")
     log(f"[attention] proof {res['proof_bytes']} bytes; accepted by ZkAttention.verify(X, Y, FiatShamir()) in "
@@ -1689,7 +1840,7 @@ def main() -> int:
         return 2
     t0 = time.perf_counter()
     records: dict = {}
-    times_only = sys.argv[1:] in (["--comb"], ["--var-times"])
+    times_only = sys.argv[1:] in (["--comb"], ["--var-times"], ["--k7-times"])
     phase_build(host_library=not times_only)
     dev = torch.device("cuda")
     if sys.argv[1:] == ["--comb"]:
@@ -1698,6 +1849,9 @@ def main() -> int:
     if sys.argv[1:] == ["--var-times"]:
         times = {"g1_comb_shapes": phase_comb_times(dev, with_plain=False), **phase_var_times(dev)}
         print(json.dumps(times), flush=True)
+        return 0
+    if sys.argv[1:] == ["--k7-times"]:
+        print(json.dumps({"fr_batch_inverse_shapes": phase_k7_times(dev)}), flush=True)
         return 0
     if sys.argv[1:] == ["--attention"]:
         phase_k7(records)

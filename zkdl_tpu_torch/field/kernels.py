@@ -5,19 +5,21 @@ uint32 (8, ...) tensors. On a CPU tensor it runs the plain PyTorch version;
 on a CUDA tensor it launches the kernel of ``csrc/fr_kernels.cu`` (built at
 first use) or raises: there is no fallback between the two.
 
-| wrapper      | kernel             | replaces (TPU)                        |
-| ------------ | ------------------ | ------------------------------------- |
-| mul          | K1 fr_mul          | pallas_fr.py:_mul_kernel (:156)       |
-| mul_scalar   | K2 fr_mul_scalar   | pallas_fr.py:_mul_scalar_kernel (:163)|
-| dot/dot_many | K3 fr_dot          | pallas_fr.py:_dot_cols_kernel (:186)  |
-| batch_inverse| K7 fr_batch_inverse| sumcheck/lookup.py:batch_inverse (:55)|
+| wrapper              | kernel             | replaces (TPU)                        |
+| -------------------- | ------------------ | ------------------------------------- |
+| mul                  | K1 fr_mul          | pallas_fr.py:_mul_kernel (:156)       |
+| mul_scalar           | K2 fr_mul_scalar   | pallas_fr.py:_mul_scalar_kernel (:163)|
+| dot/dot_many         | K3 fr_dot          | pallas_fr.py:_dot_cols_kernel (:186)  |
+| batch_inverse(_many) | K7 fr_batch_inverse| sumcheck/lookup.py:batch_inverse (:55)|
 
 Bounds on an H100 (csrc/fr_kernels.cu has the derivation): all three are
 memory-bound, K1/K2 at 96/64 B per element, K3 at 64 B per element read
 (128 multiply-adds of its lazy product take less time than the bytes). K3
 serves ``dot`` and every ``dot_many`` call in one launch each; ``plan_dot``
 sets its grid. K7 (``csrc/fr_inverse.cu``, an XLA scan on the TPU) is
-bound by its chain of dependent products, above all one Fermat power.
+bound by its chain of dependent products: a product tree over the grid and
+one binary-GCD inverse a segment (``batch_inverse_many`` inverts several
+tensors in one call).
 """
 
 from __future__ import annotations
@@ -86,10 +88,10 @@ def _lib() -> ctypes.CDLL:
 def _inverse_lib() -> ctypes.CDLL:
     lib = build.load("fr_inverse")
     if not getattr(lib, "_zk_typed", False):
-        lib.zk_fr_batch_inverse.argtypes = [_P, _P, _P, _P, _I, _P, ctypes.c_int]
+        lib.zk_fr_batch_inverse.argtypes = [_P, _P, _P, ctypes.c_int, _P, _P, _P, ctypes.c_int]
         lib.zk_fr_batch_inverse.restype = ctypes.c_int
-        lib.zk_fr_batch_inverse_chunks.argtypes = [_I]
-        lib.zk_fr_batch_inverse_chunks.restype = _I
+        lib.zk_fr_batch_inverse_scratch.argtypes = [_P, ctypes.c_int]
+        lib.zk_fr_batch_inverse_scratch.restype = _I
         lib._zk_typed = True
     return lib
 
@@ -407,26 +409,50 @@ def batch_inverse_plain(x: torch.Tensor) -> torch.Tensor:
     return out.transpose(0, 1).contiguous()
 
 
-def batch_inverse(x: torch.Tensor) -> torch.Tensor:
-    """x^-1 elementwise for (n, 8) uint32 Montgomery rows (the JAX function
-    takes them nonzero): K7 on a CUDA tensor (two launches, counted as one
-    call), the plain version on a CPU one. A zero input makes every output
-    zero, as in the JAX function."""
-    if x.dtype != torch.uint32 or x.dim() != 2 or x.shape[1] != N_LIMBS:
-        raise ValueError(f"batch_inverse: expected uint32 (n, 8) rows, got {x.dtype} {tuple(x.shape)}")
-    if not _on_cuda(x):
-        return batch_inverse_plain(x)
-    n = x.shape[0]
-    out = torch.empty_like(x)
-    if n:
-        x = x.contiguous()
+@functools.lru_cache(maxsize=None)
+def _inverse_counter(device: int, stream: int) -> torch.Tensor:
+    """K7's ticket, one zero word per (device, stream), kept for the process:
+    launches on one stream run in order, and each leaves it at 0."""
+    return torch.zeros((1,), dtype=torch.int32, device=torch.device("cuda", device))
+
+
+def batch_inverse_many(xs) -> list[torch.Tensor]:
+    """[x^-1 elementwise for each x], x (n, 8) uint32 Montgomery rows: K7 on
+    CUDA tensors, all segments in one call (two launches, counted as one;
+    the kernel's limits on segments and rows raise), a batch_inverse_plain
+    call a segment on CPU ones.
+    Each segment keeps the JAX function's zero rule on its own: a zero input
+    makes every output of its segment zero, and no other."""
+    xs = list(xs)
+    for x in xs:
+        if x.dtype != torch.uint32 or x.dim() != 2 or x.shape[1] != N_LIMBS:
+            raise ValueError(f"batch_inverse: expected uint32 (n, 8) rows, got {x.dtype} {tuple(x.shape)}")
+    if not xs or not _on_cuda(*xs):
+        return [batch_inverse_plain(x) for x in xs]
+    outs = [torch.empty_like(x) for x in xs]
+    live = [(x.contiguous(), o) for x, o in zip(xs, outs) if x.shape[0]]  # copies live until after the launch
+    if live:
+        S = len(live)
+        ns = (ctypes.c_longlong * S)(*(x.shape[0] for x, _ in live))
         lib = _inverse_lib()
-        scratch = torch.empty((3 * lib.zk_fr_batch_inverse_chunks(n) * N_LIMBS,), dtype=torch.uint32,
-                              device=x.device)
-        counter = torch.zeros((1,), dtype=torch.int32, device=x.device)
-        idx = x.device.index
-        rc = lib.zk_fr_batch_inverse(x.data_ptr(), out.data_ptr(), scratch.data_ptr(), counter.data_ptr(), n,
-                                     torch._C._cuda_getCurrentRawStream(idx), idx)
+        words = lib.zk_fr_batch_inverse_scratch(ns, S)
+        if words < 0:
+            raise ValueError(f"batch_inverse_many: segments of {list(ns)} rows exceed K7's limits "
+                             "(csrc/fr_inverse.cu: MAX_SEGMENTS segments, 2^31 - 1 rows in all)")
+        dev = live[0][0].device
+        idx = dev.index
+        stream = torch._C._cuda_getCurrentRawStream(idx)
+        scratch = torch.empty((words,), dtype=torch.uint32, device=dev)
+        rc = lib.zk_fr_batch_inverse((ctypes.c_void_p * S)(*(x.data_ptr() for x, _ in live)),
+                                     (ctypes.c_void_p * S)(*(o.data_ptr() for _, o in live)), ns, S,
+                                     scratch.data_ptr(), _inverse_counter(idx, stream).data_ptr(), stream, idx)
         _check(rc, "fr_batch_inverse")
         INVERSE.launches += 1
-    return out
+    return outs
+
+
+def batch_inverse(x: torch.Tensor) -> torch.Tensor:
+    """x^-1 elementwise for (n, 8) uint32 Montgomery rows (the JAX function
+    takes them nonzero): batch_inverse_many of one segment. A zero input
+    makes every output zero, as in the JAX function."""
+    return batch_inverse_many([x])[0]

@@ -9,8 +9,9 @@ challenge z drawn after m is absorbed: two inner-product sumchecks reduce
 the sums, two Hadamard sumchecks bind the inverse vectors to a + z and
 t + z.
 
-The inverse vectors come from ``batch_inverse``: kernel K7
-(``csrc/fr_inverse.cu``) on a CUDA tensor, its plain version on a CPU one.
+The inverse vectors come from ``kernels.batch_inverse_many``, both sides in
+one call: kernel K7 (``csrc/fr_inverse.cu``) on CUDA tensors, its plain
+version on CPU ones.
 """
 
 from __future__ import annotations
@@ -59,8 +60,8 @@ def _lookup_core(a, t, m, z, u_w_ip, u_v_ip, u_w, v_w, u_t, v_t):
     dev = a.device
     az = fr_ops.add(a, fr_ops.const(z, 1, dev))
     tz = fr_ops.add(t, fr_ops.const(z, 1, dev))
-    w = batch_inverse(az)
-    v = fr_ops.mul(m, batch_inverse(tz))
+    w, tz_inv = kernels.batch_inverse_many([az, tz])  # one K7 call, each side its own zero rule
+    v = fr_ops.mul(m, tz_inv)
     sum_w, sum_v = fr_ops.fr_sum(w), fr_ops.fr_sum(v)
     w_ip_polys, w_ip_finals = sc.inner_product_prove(w, fr_ops.ones_mont(a.shape[0], dev), u_w_ip)
     v_ip_polys, v_ip_finals = sc.inner_product_prove(v, fr_ops.ones_mont(t.shape[0], dev), u_v_ip)
