@@ -9,6 +9,8 @@ builds and runs.
                                         # commitments' shapes on seeded data
     python3 chip_smoke.py --attention   # phase 1, K7 against plain, and phase 7 alone
     python3 chip_smoke.py --k7-times    # K7 times only, on seeded inputs
+    python3 chip_smoke.py --glv         # phase 1, K8 against plain on its edges, and K8 (beside K5)
+                                        # timed at the verify's MSM shape and the blinded tier's H^b
 
 `--comb`, `--var-times` and `--k7-times` time K4 (and K5, K6; K7) on the same
 seeded inputs in any checkout of the port they are copied into, so that two
@@ -34,7 +36,10 @@ Phases (each prints its own lines; any failure exits nonzero):
      scalar for all), at the verify's MSM and first fold level (18,432 and
      6,656 seeded points, random scalars below r), K6 at a mag_bin
      commitment's first two levels (2^23 and 2^22 pairs, bits drawn at a
-     real commitment's set-bit share)
+     real commitment's set-bit share); K8 (GLV scalar multiplication) in
+     each layout on the decomposition's edge scalars (0, 1, lambda - 1,
+     lambda, lambda + 1, r - 1) on G, a random point, O and (r^2, -r^3, 0)
+     at 1 to 257 points, and against K5 in affine form
   3. a small model proved on the card and on the CPU (plain versions): every
      proof array identical, unchained SeededRng and chained Fiat-Shamir; the
      card's proof accepted by the port's verifier on the card and, moved to
@@ -63,9 +68,11 @@ Phases (each prints its own lines; any failure exits nonzero):
      kernel (all > 0); nums_generators(4096) against the JAX package's
      digests (tests/port/fixtures/nums_generators_jax.json), a 2^19-element
      layer's sign commitment and 64 rows of its mag_bin commitment against
-     plain; K5 held against plain and timed at the verify's own launches
-     (relu[1]'s generator MSM, 18,432 points, and the first level of its
-     row commitments' MLE fold, 6,656 points, a scalar per point); K6 timed
+     plain; K8 held against plain and K5 and timed at the verify's
+     generator MSM (relu[1]'s, 18,432 points) and K5 at the first level of
+     its row commitments' MLE fold (6,656 points), a scalar per point; K8's
+     launches in one committed verify (one per batch of opening checks,
+     each formerly a K5 launch); K6 timed
      at a mag_bin commitment's first (bit mode) and second levels, with the
      set-bit share of its bits and the lane use of one thread a pair against
      K6's per-block list; K5's device time in one committed verify and K6's
@@ -88,7 +95,20 @@ Phases (each prints its own lines; any failure exits nonzero):
      K6 held against plain and timed at the witness commitments' launches;
      the tiny block (seq 4, d 8) proved in both tiers on the card and on
      the CPU, every proof array equal, and equal to the recorded JAX
-     proofs (tests/port/fixtures/attention_jax.npz)
+     proofs (tests/port/fixtures/attention_jax.npz); the K8 launches of
+     its verify
+  8. (phase 4's model, after phase 6) the blinded tier on a 2048 x 2048
+     layer: commit_blinded (one K8 launch of 2048 H^b points, held against
+     plain and timed), open_blinded, verify_open_blinded accepting, and
+     rejecting a wrong blinder fold and a tampered value with the JAX
+     verifier's reasons (tests/port/fixtures/slice11_jax.json); checkpointed
+     proving of zkdl256, byte-identical to phase 4's proof, and again after
+     resuming with the last four layer files removed; (after phase 5)
+     zkConv2D at 28 x 28 x 32 -> 64, 3 x 3, pad 1, batch 64: the forward
+     against a float64 convolution within the quantization bound, prove,
+     verify, a tampered output rejected with the JAX reason, and the small
+     case of tests/test_conv.py on the card equal to the CPU's proof and the
+     JAX recorder's (slice11_jax.npz)
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -608,6 +628,211 @@ def phase_var_times(dev, sets: dict | None = None) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# K8: GLV scalar multiplication
+# ---------------------------------------------------------------------------
+
+# K8 launch sizes held against plain: one point, partial warps of each
+# layout (1, 4 or 16 points a warp), a block and one more
+GLV_SIZES = (1, 2, 3, 5, 17, 33, 255, 257)
+BLIND_ROWS = 2048  # zkdl256's 2048 x 2048 layers: 2048 rows over 2048 generators, an H^b a row
+
+
+def glv_work(pts, scal) -> tuple[int, int, int]:
+    """(doubles, generic adds, Fp products) of GLV on this data, as the JAX
+    formulas count them: per point that is not the identity, the tables'
+    2 doubles (t[2] = add(p, p)) and 26 generic adds and phi's one product;
+    4 doubles a window below the point's highest nonzero window, and a
+    generic add for each nonzero digit after its first (the first adds to
+    the identity)."""
+    import torch
+    from zkdl_tpu_torch.curve import g1
+
+    s1, s2 = g1.glv_decompose(scal.cpu())
+    d1, d2 = g1._window_digits(s1), g1._window_digits(s2)
+    nz = (d1 != 0) | (d2 != 0)
+    top = torch.where(nz, torch.arange(nz.shape[1]), -1).max(1).values
+    live = ~g1.is_identity(pts).cpu()
+    digits = (d1 != 0).sum(1) + (d2 != 0).sum(1)
+    dbl = int((4 * top.clamp(min=0))[live].sum().item()) + 2 * int(live.sum().item())
+    adds = int((digits - 1).clamp(min=0)[live].sum().item()) + 26 * int(live.sum().item())
+    return dbl, adds, int(live.sum().item())
+
+
+def glv_bound(pts, scal) -> tuple[float, str]:
+    """K8's least time: points and scalars read and the products written
+    once, against the multiply-adds of this data's GLV (glv_work; the
+    tables are scratch, not counted as traffic)."""
+    dbl, adds, phi = glv_work(pts, scal)
+    return bound_ms(pts.x.shape[0] * (3 * 48 * 2 + 32), dbl * G1_DBL_IMAD + adds * G1_ADD_IMAD + phi * FP_MUL_IMAD)
+
+
+def windowed_bound(pts, scal) -> tuple[float, str]:
+    """The least time of the still unported g1.py:scalar_mul_windowed
+    (:187-214, 4-bit windows, 64 of them from the top) on this data: per
+    point that is not the identity its table's double (t[2]) and 13
+    generic adds, 4 doubles a window below the scalar's highest nonzero
+    window, a generic add per nonzero digit after the first; the same
+    bytes as K5."""
+    import torch
+    from zkdl_tpu_torch.curve import g1
+
+    n = pts.x.shape[0]
+    s = (scal.reshape(-1, 8).expand(n, 8) if scal.dim() == 1 else scal).cpu()
+    d = g1._digits(s)  # (n, 64) 4-bit windows, LSB first
+    top = torch.where(d != 0, torch.arange(64), -1).max(1).values
+    live = ~g1.is_identity(pts).cpu()
+    dbl = int((4 * top.clamp(min=0))[live].sum().item()) + int(live.sum().item())
+    adds = int(((d != 0).sum(1) - 1).clamp(min=0)[live].sum().item()) + 13 * int(live.sum().item())
+    return bound_ms(n * 3 * 48 * 2 + (32 if scal.dim() == 1 else n * 32), dbl * G1_DBL_IMAD + adds * G1_ADD_IMAD)
+
+
+def ntt_bound(log_n: int) -> tuple[float, str]:
+    """The least time of the still unported tensor/fft.py:_ntt_core (:72-85),
+    a forward radix-2 NTT of 2^log_n Fr values: log_n stages of n/2
+    butterflies, each one Fr product (the adds are not counted); the
+    input, the output and the stages' twiddles (n - 1 in all) moved once."""
+    n = 1 << log_n
+    return bound_ms(32 * (2 * n + n - 1), log_n * (n // 2) * FR_MUL_IMAD)
+
+
+NTT_LOG_N = 20  # the size at which PERF.md states _ntt_core's bound
+
+
+def glv_edges(dev):
+    """K8's edge inputs: the decomposition's edge scalars 0, 1, lambda - 1,
+    lambda, lambda + 1 and r - 1 on G, a random point (z != 1), the identity
+    and (r^2, -r^3, 0) (p + (-p) by the generic formula), then random points
+    from K4 by random scalars below r, max(GLV_SIZES) in all."""
+    import torch
+    from zkdl_tpu_torch.curve import convert, g1, host_g1
+    from zkdl_tpu_torch.field import fr
+
+    n = max(GLV_SIZES)
+    raw = np.random.default_rng(13).integers(0, 1 << 32, size=(2 * n, 8), dtype=np.uint32)
+    raw[:, 7] %= np.uint32(fr.P_TOP_LIMB)
+    R = g1.generator_pow(torch.from_numpy(raw).to(dev))
+    G = convert.jac_to_device([host_g1.GENERATOR], dev)
+    O = g1.identity((1,), dev)
+    r0 = _points(R, torch.tensor([0], device=dev))
+    C = g1.add_plain(r0, g1.neg(r0))
+    lam = g1._LAMBDA_INT
+    scalars = [0, 1, lam - 1, lam, lam + 1, fr.P_INT - 1]
+    head = [G, r0, O, C]
+    pe = _cat_points(*[pt for pt in head for _ in scalars])
+    se = torch.stack([scalar_words(x) for _ in head for x in scalars]).to(dev)
+    k = pe.x.shape[0]
+    pts = _cat_points(pe, _points(R, torch.arange(1, 1 + n - k, device=dev)))
+    sc = torch.cat([se, torch.from_numpy(raw[n: 2 * n - k]).to(dev)])
+    return pts, sc
+
+
+def phase_glv(dev, records: dict) -> None:
+    """K8 against its plain version on the card, bit for bit, in each layout
+    at every size of GLV_SIZES (each set headed by glv_edges' edge points and
+    scalars); K8 against K5 in affine form on the largest set."""
+    import torch
+    from zkdl_tpu_torch.curve import convert, g1
+
+    pts, sc = glv_edges(dev)
+    want = g1.scalar_mul_glv_plain(pts, sc)
+    for form in g1.SCALAR_MUL_FORMS:
+        for m in GLV_SIZES:
+            idx = torch.arange(m, device=dev)
+            same_points(f"g1_scalar_mul_glv ({form}) n={m}", g1.scalar_mul_glv(_points(pts, idx), sc[:m], form),
+                        _points(want, idx))
+    if convert.affine_from_device(g1.scalar_mul_glv(pts, sc)) != convert.affine_from_device(g1.scalar_mul(pts, sc)):
+        raise AssertionError("g1_scalar_mul_glv and g1_scalar_mul disagree in affine form")
+    log(f"[kernels] g1_scalar_mul_glv bit-equal to plain in each layout ({', '.join(g1.SCALAR_MUL_FORMS)}) at n = "
+        f"{', '.join(map(str, GLV_SIZES))}, each set headed by the scalars 0, 1, lambda-1, lambda, lambda+1 and "
+        "r-1 on G, a random point, O and (r^2, -r^3, 0); equal to g1_scalar_mul in affine form")
+    records.setdefault("_g1_scalar_mul_glv_shapes", {})
+
+
+def time_glv(records: dict, label: str, pts, scal) -> dict:
+    """K8 on (pts, scal) held bit for bit against scalar_mul_glv_plain on the
+    card in every layout and against K5 in affine form, then timed beside
+    K5 on the same inputs and beside its bound; kept in records' K8 shapes."""
+    from zkdl_tpu_torch.curve import convert, g1
+
+    want, pms = plain_once(lambda: g1.scalar_mul_glv_plain(pts, scal))
+    err = max(point_err(g1.scalar_mul_glv(pts, scal, form), want) for form in g1.SCALAR_MUL_FORMS)
+    if err:
+        raise AssertionError(f"g1_scalar_mul_glv differs from plain at {label}: {err}")
+    if convert.affine_from_device(want) != convert.affine_from_device(g1.scalar_mul(pts, scal)):
+        raise AssertionError(f"g1_scalar_mul_glv and g1_scalar_mul disagree in affine form at {label}")
+    ms = {form: cuda_ms(lambda f=form: g1.scalar_mul_glv(pts, scal, f), 10) for form in g1.SCALAR_MUL_FORMS}
+    k5 = cuda_ms(lambda: g1.scalar_mul(pts, scal), 10)
+    bms, by = glv_bound(pts, scal)
+    k5_bms, _ = var_bound(pts, scal)
+    dbl, adds, phi = glv_work(pts, scal)
+    rec = records.setdefault("_g1_scalar_mul_glv_shapes", {})[label] = {
+        "points": pts.x.shape[0], "ms": ms["auto"], **{f"ms_{f}": t for f, t in ms.items() if f != "auto"},
+        "plain_ms": pms, "bound_ms": bms, "bound_by": by, "max_abs_err": err, "k5_ms": k5, "k5_bound_ms": k5_bms,
+        "doubles": dbl, "adds": adds}
+    log(f"[kernels] g1_scalar_mul_glv at {label}: bit-equal to plain in every layout, equal to g1_scalar_mul in "
+        f"affine form; {ms['auto']:.4f} ms (layouts: {', '.join(f'{f} {t:.4f}' for f, t in ms.items() if f != 'auto')};"
+        f" plain {pms:.1f} ms, bound {bms:.6f} ms by {by} from {dbl} doubles and {adds} adds, "
+        f"{100 * bms / ms['auto']:.2f}% of it); g1_scalar_mul on the same {k5:.4f} ms (bound {k5_bms:.6f})")
+    return rec
+
+
+GLV_SWEEP = (256, 1024, 2048, 4096, 8192, 12288, 18432)  # --glv's launch sizes for K8's layout crossovers
+
+
+def glv_layout_sweep(dev) -> dict:
+    """K8 in each layout at each size of GLV_SWEEP (points from K4, random
+    scalars below r), every layout's output equal to the others', timed
+    over 5 launches: where each layout is fastest (GLV_QUAD_FROM,
+    GLV_SOLO_FROM in csrc/g1_glv.cu)."""
+    import torch
+    from zkdl_tpu_torch.curve import g1
+    from zkdl_tpu_torch.field import fr
+
+    rng = np.random.default_rng(16)
+    raw = rng.integers(0, 1 << 32, size=(2 * max(GLV_SWEEP), 8), dtype=np.uint32)
+    raw[:, 7] %= np.uint32(fr.P_TOP_LIMB)
+    allp = g1.generator_pow(torch.from_numpy(raw[: max(GLV_SWEEP)]).to(dev))
+    alls = torch.from_numpy(raw[max(GLV_SWEEP):]).to(dev)
+    out = {}
+    for n in GLV_SWEEP:
+        pts, sc = g1.G1Jac(*(c[:n] for c in allp)), alls[:n].contiguous()
+        ref = torch.cat(list(g1.scalar_mul_glv(pts, sc)))
+        for form in g1.SCALAR_MUL_FORMS:
+            if not torch.equal(torch.cat(list(g1.scalar_mul_glv(pts, sc, form))), ref):
+                raise AssertionError(f"g1_scalar_mul_glv's layouts disagree at {n} points")
+        out[n] = {form: cuda_ms(lambda f=form: g1.scalar_mul_glv(pts, sc, f), 5) for form in g1.SCALAR_MUL_FORMS}
+        log(f"[glv] {n} points: " + ", ".join(f"{f} {t:.4f} ms" for f, t in out[n].items()))
+    return out
+
+
+def glv_time_sets(dev) -> dict:
+    """--glv's seeded inputs: the verify's generator MSM shape (VAR_MSM_POINTS
+    points from K4, random scalars below r) and the blinded tier's H^b at
+    BLIND_ROWS rows (the blinding point by random_fr blinders)."""
+    import torch
+    from zkdl_tpu_torch.commit import pedersen
+    from zkdl_tpu_torch.curve import g1
+    from zkdl_tpu_torch.field import fr
+    from zkdl_tpu_torch.tensor import fr_ops
+    from zkdl_tpu_torch.utils import prng
+
+    rng = np.random.default_rng(12)
+
+    def below_r(m):
+        raw = rng.integers(0, 1 << 32, size=(m, 8), dtype=np.uint32)
+        raw[:, 7] %= np.uint32(fr.P_TOP_LIMB)
+        return torch.from_numpy(raw).to(dev)
+
+    H = pedersen.blinding_point(dev)
+    return {
+        f"the verify's generator MSM shape ({VAR_MSM_POINTS} points, random scalars below r)":
+            (g1.generator_pow(below_r(VAR_MSM_POINTS)), below_r(VAR_MSM_POINTS)),
+        f"the blinded tier's H^b shape ({BLIND_ROWS} rows, random blinders)":
+            (g1.G1Jac(*(c.expand(BLIND_ROWS, 12) for c in H)), fr_ops.random_fr(prng.PRNGKey(7), BLIND_ROWS, dev)),
+    }
+
+
 def plain_once(fn):
     """fn()'s result and its device time in ms, one run (the plain versions
     take seconds a call)."""
@@ -1057,10 +1282,11 @@ def lane_use(generic) -> tuple[float, float]:
 
 
 def profile_committed(res: dict, records: dict) -> None:
-    """K5's device time in one committed verify and K6's in one committed
-    prove (torch.profiler, summed over the kernels' launches), beside the
-    sums of the launches' bounds (var_bound, add_bound, add_bits_bound on
-    each launch's own inputs, recorded while it runs)."""
+    """K5's and K8's device time in one committed verify and K6's in one
+    committed prove (torch.profiler, summed over the kernels' launches),
+    beside the sums of the launches' bounds (var_bound, glv_bound,
+    add_bound, add_bits_bound on each launch's own inputs, recorded while
+    it runs)."""
     import torch
     from zkdl_tpu_torch.curve import g1
     from zkdl_tpu_torch.models import mlp
@@ -1068,13 +1294,18 @@ def profile_committed(res: dict, records: dict) -> None:
     from zkdl_tpu_torch.sumcheck.transcript import FiatShamir
     from zkdl_tpu_torch.utils import profiling
 
-    bounds = {"K5 g1_scalar_mul": 0.0, "K6 g1_add": 0.0}
-    smul, add_, bits_ = g1.scalar_mul, g1._add, g1.add_bits
+    bounds = {"K5 g1_scalar_mul": 0.0, "K6 g1_add": 0.0, "K8 g1_scalar_mul_glv": 0.0}
+    smul, add_, bits_, glv = g1.scalar_mul, g1._add, g1.add_bits, g1.scalar_mul_glv
 
     def scalar_mul(p, scal, form="auto"):
         flat = g1.G1Jac(*(c.reshape(-1, 12) for c in p))
         bounds["K5 g1_scalar_mul"] += var_bound(flat, scal if scal.dim() == 1 else scal.reshape(-1, 8))[0]
         return smul(p, scal, form)
+
+    def scalar_mul_glv(p, scal, form="auto"):
+        flat = g1.G1Jac(*(c.reshape(-1, 12) for c in p))
+        bounds["K8 g1_scalar_mul_glv"] += glv_bound(flat, scal.reshape(-1, 8))[0]
+        return glv(p, scal, form)
 
     def _add(p, q, neg_q):
         bounds["K6 g1_add"] += add_bound(*(g1.G1Jac(*(c.reshape(-1, 12) for c in x)) for x in (p, q)))[0]
@@ -1086,7 +1317,7 @@ def profile_committed(res: dict, records: dict) -> None:
 
     model, X, Y = res["model"], res["X"], res["Y_hat"]
     out = {}
-    g1.scalar_mul, g1._add, g1.add_bits = scalar_mul, _add, add_bits
+    g1.scalar_mul, g1._add, g1.add_bits, g1.scalar_mul_glv = scalar_mul, _add, add_bits, scalar_mul_glv
     try:
         for what, fn in (("verify", lambda: model.verify(res["proof"], X=X, Y_hat=Y, transcript=FiatShamir())),
                          ("prove", lambda: mlp.prove_timed(model, X, res["batch"], commit_aux=True))):
@@ -1100,9 +1331,9 @@ def profile_committed(res: dict, records: dict) -> None:
             out[what] = {k: {"device_ms": 1e3 * groups.get(k, [0.0, 0])[0], "launches": groups.get(k, [0.0, 0])[1],
                              "bound_ms": bounds[k]} for k in bounds}
     finally:
-        g1.scalar_mul, g1._add, g1.add_bits = smul, add_, bits_
+        g1.scalar_mul, g1._add, g1.add_bits, g1.scalar_mul_glv = smul, add_, bits_, glv
     for what, ks in out.items():
-        log(f"[committed] device time of K5 and K6 in one committed {what} (torch.profiler): " + "; ".join(
+        log(f"[committed] device time of K5, K6 and K8 in one committed {what} (torch.profiler): " + "; ".join(
             f"{k} {v['device_ms']:.3f} ms over {v['launches']} launches, bound sum {v['bound_ms']:.3f} ms"
             for k, v in ks.items()))
     records["_committed_device"] = out
@@ -1112,51 +1343,66 @@ OPENINGS = ("open_mag_bin", "open_rem_bin", "open_mag_rec", "open_rem_rec", "ope
 
 
 def time_verify_scalar_muls(res: dict, records: dict) -> None:
-    """K5 at the verify's own launches: relu[1]'s committed-aux checks
+    """K8 and K5 at the verify's own launches: relu[1]'s committed-aux checks
     (zkrelu.verify_committed, a 2^19-element layer) run once with
-    g1.scalar_mul recorded. Its first launch is the six openings' generator
-    MSM (each generator by its opening's unmonted t_folded entry), its
-    second the first level of the row commitments' MLE fold (each
-    difference point by its vector's challenge); both a scalar per point,
-    held against plain and timed. The MSM is K5's record in the kernels'
-    line."""
+    g1.scalar_mul_glv and g1.scalar_mul recorded. K8's one launch is the six
+    openings' generator MSM (each generator by its opening's unmonted
+    t_folded entry); K5's first is the first level of the row commitments'
+    MLE fold (each difference point by its vector's challenge); both a
+    scalar per point, held against plain and timed (K8 also beside K5 on
+    the MSM's inputs). They are K8's and K5's records in the kernels' line."""
     import torch
     from zkdl_tpu_torch.curve import g1
     from zkdl_tpu_torch.models import zkrelu
     from zkdl_tpu_torch.tensor import fr_ops
 
     rp = res["proof"].relu_proofs[1]
-    calls = []
-    smul = g1.scalar_mul
+    calls, glv_calls = [], []
+    smul, glv = g1.scalar_mul, g1.scalar_mul_glv
 
     def recorded(p, scal):
         calls.append((g1.G1Jac(*(c.clone() for c in p)), scal.clone()))
         return smul(p, scal)
 
-    g1.scalar_mul = recorded
+    def recorded_glv(p, scal):
+        glv_calls.append((g1.G1Jac(*(c.clone() for c in p)), scal.clone()))
+        return glv(p, scal)
+
+    g1.scalar_mul, g1.scalar_mul_glv = recorded, recorded_glv
     try:
         got = zkrelu.verify_committed(rp)
     finally:
-        g1.scalar_mul = smul
+        g1.scalar_mul, g1.scalar_mul_glv = smul, glv
     if got != (True, ""):
         raise AssertionError(f"relu[1]'s committed-aux checks failed: {got}")
     coms = rp.aux_coms
     msm_n = sum(getattr(rp, f).t_folded.shape[0] for f in OPENINGS)
     fold_n = sum((1 << fr_ops.ceil_log2(c.points.x.shape[0])) // 2 for c in (coms.mag, coms.rem) * 2 + (coms.sign,) * 2)
-    sizes = [p.x.shape[0] for p, _ in calls]
-    if sizes[:2] != [msm_n, fold_n] or any(s.dim() != 2 for _, s in calls):
-        raise AssertionError(f"relu[1]'s verify launched K5 at {sizes}, expected the MSM ({msm_n}) then the first "
-                             f"fold level ({fold_n}), a scalar per point")
-    log(f"[committed] relu[1]'s checks launch K5 {len(calls)} times, at {sizes} points")
+    sizes, glv_sizes = [p.x.shape[0] for p, _ in calls], [p.x.shape[0] for p, _ in glv_calls]
+    if glv_sizes != [msm_n] or sizes[:1] != [fold_n] or any(s.dim() != 2 for _, s in calls + glv_calls):
+        raise AssertionError(f"relu[1]'s verify launched K8 at {glv_sizes} and K5 at {sizes}, expected K8 once at the "
+                             f"MSM ({msm_n}) and K5 first at the first fold level ({fold_n}), a scalar per point")
+    log(f"[committed] relu[1]'s checks launch K8 once, at {msm_n} points (the generator MSM), and K5 {len(calls)} "
+        f"times, at {sizes} points (the row commitments' MLE fold)")
     msm = f"the verify's generator MSM of relu[1] ({msm_n} points, a scalar per point)"
-    time_scalar_mul(records, msm, *calls[0])
-    time_scalar_mul(records, f"the first MLE fold level of relu[1]'s verify ({fold_n} points, a scalar per point)",
-                    *calls[1])
+    shape = time_glv(records, msm, *glv_calls[0])
+    wms, wby = windowed_bound(*glv_calls[0])
+    nms, nby = ntt_bound(NTT_LOG_N)
+    records["_to_port_bounds"] = {"scalar_mul_windowed at " + msm: {"bound_ms": wms, "bound_by": wby},
+                                  f"_ntt_core at 2^{NTT_LOG_N}": {"bound_ms": nms, "bound_by": nby}}
+    log(f"[committed] still to port: g1.py:scalar_mul_windowed on the same MSM, bound {wms:.6f} ms by {wby}; "
+        f"fft.py:_ntt_core, a forward NTT of 2^{NTT_LOG_N} values, bound {nms:.6f} ms by {nby}")
+    records["g1_scalar_mul_glv"] = {**{k: shape[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+                                    "max_abs_err": max(v["max_abs_err"] for v in
+                                                       records["_g1_scalar_mul_glv_shapes"].values()),
+                                    "library_ms": None}
+    fold = f"the first MLE fold level of relu[1]'s verify ({fold_n} points, a scalar per point)"
+    time_scalar_mul(records, fold, *calls[0])
     shapes = records["_g1_scalar_mul_shapes"]
-    records["g1_scalar_mul"] = {**{k: v for k, v in shapes[msm].items() if k != "max_abs_err"},
+    records["g1_scalar_mul"] = {**{k: v for k, v in shapes[fold].items() if k != "max_abs_err"},
                                 "max_abs_err": max(v["max_abs_err"] for v in shapes.values()), "library_ms": None}
-    # every launch of the verify in every layout, each layout bit-equal to
-    # the first (the two largest are held against plain above)
+    # every K5 launch of the verify in every layout, each layout bit-equal to
+    # the first (the largest is held against plain above)
     sweep = records["_g1_scalar_mul_verify_launches"] = {}
     for p, scal in calls:
         outs = {form: torch.cat(list(g1.scalar_mul(p, scal, form))) for form in g1.SCALAR_MUL_FORMS}
@@ -1166,6 +1412,32 @@ def time_verify_scalar_muls(res: dict, records: dict) -> None:
         sweep[p.x.shape[0]] = {form: cuda_ms(lambda f=form: g1.scalar_mul(p, scal, f), 5) for form in outs}
         log(f"[committed] relu[1]'s verify, K5 at {p.x.shape[0]} points: " +
             ", ".join(f"{f} {t:.4f} ms" for f, t in sweep[p.x.shape[0]].items()))
+
+
+def count_verify_reveals(model, proof, X, Y) -> tuple[dict, int]:
+    """One committed verify with Fiat-Shamir replay: its kernel launches
+    and the number of device batches of opening checks it made (each one
+    K8 launch, formerly one K5 launch)."""
+    from zkdl_tpu_torch import bench
+    from zkdl_tpu_torch.commit import pedersen
+    from zkdl_tpu_torch.sumcheck.transcript import FiatShamir
+
+    batches = [0]
+    group_math = pedersen._reveal_group_math
+
+    def counted(checks, live):
+        batches[0] += 1
+        return group_math(checks, live)
+
+    before = bench.launch_counts()
+    pedersen._reveal_group_math = counted
+    try:
+        got = model.verify(proof, X=X, Y_hat=Y, transcript=FiatShamir())
+    finally:
+        pedersen._reveal_group_math = group_math
+    if got != (True, ""):
+        raise AssertionError(f"the committed verify failed: {got}")
+    return {k: v - before[k] for k, v in bench.launch_counts().items()}, batches[0]
 
 
 def phase_committed(records: dict, ordinary: dict, pairs: int = 3) -> dict:
@@ -1189,7 +1461,7 @@ def phase_committed(records: dict, ordinary: dict, pairs: int = 3) -> dict:
         k.launches = 0
     res = bench.run("zkdl256_committed", device="cuda", split=True)
     torch.cuda.synchronize()
-    launches = {k: v for k, v in bench.launch_counts().items() if k != kernels.INVERSE.name}  # K1-K6
+    launches = {k: v for k, v in bench.launch_counts().items() if k != kernels.INVERSE.name}  # K1-K6, K8
     log(f"[committed] zkdl256_committed: build {res['build_s']:.3f}s, infer {res['infer_s']:.3f}s, prove warm "
         f"{res['warm_prove_s']:.3f}s, steady {res['prove_s']:.3f}s, {res['spp']:.6f} s/point, peak device memory "
         f"of the prove {res['prove_peak_gib']:.2f} GiB")
@@ -1204,6 +1476,13 @@ def phase_committed(records: dict, ordinary: dict, pairs: int = 3) -> dict:
     log(f"[committed] proof {res['proof_bytes']} bytes; accepted by MLP.verify(X, Y_hat, FiatShamir()) in "
         f"{res['verify_s']:.3f}s; kernel launches in the verify: {json.dumps(res['verify_launches'])}")
     check_committed_build(res)
+    per_verify, batches = count_verify_reveals(res["model"], res["proof"], res["X"], res["Y_hat"])
+    k5, k8 = per_verify["g1_scalar_mul"], per_verify["g1_scalar_mul_glv"]
+    log(f"[committed] one committed verify: {k8} K8 launches (one per batch of opening checks: {batches}) and {k5} "
+        f"K5 launches, {k5 + k8} in all (before K8 every one of them was a K5 launch)")
+    if k8 != batches or k8 <= 0:
+        raise AssertionError(f"the committed verify made {k8} K8 launches for {batches} batches of opening checks")
+    records["_committed_verify_k8"] = {"k8": k8, "k5": k5, "batches": batches}
     time_verify_scalar_muls(res, records)
     time_commit_levels(res, records)
     profile_committed(res, records)
@@ -1241,9 +1520,244 @@ def phase_committed(records: dict, ordinary: dict, pairs: int = 3) -> dict:
                                "launches_per_prove", "layer_s", "proof_bytes", "verify_s", "verify_launches")},
         "launches": launches, "alternating_spp": spp, "interleaved_spp": spp_i,
         "interleaved_launches_per_prove": launches_i, "interleaved_verify_s": verify_i,
-        "device_time": records["_committed_device"],
+        "device_time": records["_committed_device"], "verify_k8": records["_committed_verify_k8"],
     }
     return res
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the blinded tier, checkpointed proving (on phase 4's model), zkConv2D
+# ---------------------------------------------------------------------------
+
+SLICE11_JAX = os.path.join("tests", "port", "fixtures", "slice11_jax")  # record_slice11.py's .npz and .json
+CONV_SHAPE = dict(h=28, w=28, c_in=32, c_out=64, kh=3, kw=3, stride=1, pad=1)  # MNIST's size, a second layer's widths
+CONV_BATCH = 64
+
+
+def slice11_jax() -> tuple[dict, dict]:
+    """The JAX package's arrays and verdicts of record_slice11.py."""
+    with np.load(SLICE11_JAX + ".npz") as z:
+        keys = json.loads(bytes(z["__keys__"]).decode())
+        arrays = {k: z[v] for k, v in keys.items()}
+    with open(SLICE11_JAX + ".json") as f:
+        return arrays, json.load(f)["verdicts"]
+
+
+def phase_blinded(res: dict, records: dict) -> None:
+    """The blinded tier on a 2048 x 2048 layer of phase 4's zkdl256 model
+    (2048 generators, 2048 rows): commit_blinded (one K8 launch of 2048 H^b
+    points, held bit for bit against plain and timed beside K5 and the
+    bound), open_blinded at a random point, verify_open_blinded accepting
+    it, and rejecting a wrong blinder fold and a tampered value with the
+    JAX verifier's reasons (recorded on tests/test_blinded.py's setup)."""
+    import torch
+    from zkdl_tpu_torch.commit import pedersen
+    from zkdl_tpu_torch.curve import convert, g1
+    from zkdl_tpu_torch.field import fr
+    from zkdl_tpu_torch.sumcheck import protocols as sc
+    from zkdl_tpu_torch.tensor import fr_ops
+    from zkdl_tpu_torch.utils import prng
+
+    layer = res["model"].layers[2]
+    m, gen = layer.com.points.x.shape[0], layer.gens.size
+    if (m, gen) != (BLIND_ROWS, BLIND_ROWS):
+        raise AssertionError(f"layer 2 has {m} rows over {gen} generators, expected {BLIND_ROWS} x {BLIND_ROWS}")
+    before = g1.GLV.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    com = pedersen.commit_blinded(layer.gens, layer.weights, prng.PRNGKey(11))
+    torch.cuda.synchronize()
+    commit_s = time.perf_counter() - t0
+    if g1.GLV.launches - before != 1:
+        raise AssertionError(f"commit_blinded made {g1.GLV.launches - before} K8 launches, expected 1")
+    H = pedersen.blinding_point(layer.weights.device)
+    hb = (g1.G1Jac(*(c.expand(m, 12) for c in H)), pedersen.from_mont_rows(com.blinders))
+    shape = time_glv(records, f"the blinded tier's H^b ({m} rows of a 2048 x 2048 layer)", *hb)
+    blind = convert.affine_from_device(com.points)
+    if blind == convert.affine_from_device(layer.com.points) or len(set(blind)) != m:
+        raise AssertionError("the blinded commitments do not hide the rows")
+    rng = np.random.default_rng(14)
+    u_raw = rng.integers(0, 1 << 32, size=(fr_ops.ceil_log2(m * gen), 8), dtype=np.uint32)
+    u_raw[:, 7] %= np.uint32(fr.P_TOP_LIMB)
+    u = pedersen.to_mont_rows(torch.from_numpy(u_raw)).numpy()
+    t0 = time.perf_counter()
+    proof, b_fold = pedersen.open_blinded(layer.gens, layer.weights, com, u)
+    torch.cuda.synchronize()
+    open_s = time.perf_counter() - t0
+    u_ints = sc.scalars_to_ints(u)
+    want = sc.scalars_to_ints(fr_ops.me_eval(layer.weights, u)[None])[0]
+    b = sc.scalars_to_ints(b_fold[None])[0]
+    _, verdicts = slice11_jax()
+    cases = {"blind_ok": dict(b_fold=b, expected_value=want), "blind_wrong_b_fold": dict(b_fold=(b + 1) % fr.P_INT),
+             "blind_tampered_value": dict(b_fold=b, expected_value=(want + 1) % fr.P_INT)}
+    verify_s = {}
+    for name, kw in cases.items():
+        t0 = time.perf_counter()
+        got = pedersen.verify_open_blinded(proof, com.public, u_ints, **kw)
+        verify_s[name] = time.perf_counter() - t0
+        if list(got) != verdicts[name]:
+            raise AssertionError(f"blinded {name}: verifier returned {got}, the JAX verifier {verdicts[name]}")
+        log(f"[blinded] {name}: {got} in {verify_s[name]:.3f}s (the JAX verifier's verdict)")
+    records["_blinded"] = {"rows": m, "gen": gen, "commit_s": commit_s, "open_s": open_s, "verify_s": verify_s,
+                           "k8_h_b": shape}
+    log(f"[blinded] 2048 x 2048 layer: commit_blinded {commit_s:.3f}s (K8 once, {m} H^b points), open_blinded "
+        f"{open_s:.3f}s, commitments distinct from the unblinded rows and from each other")
+
+
+def phase_checkpoint(res: dict, records: dict) -> None:
+    """Checkpointed proving of phase 4's zkdl256 model (grouped,
+    FiatShamir): the proof from prove_mlp_checkpointed serializes to the
+    bytes of phase 4's uninterrupted steady proof; with the files of the
+    four layer proofs made last removed, the resumed proof again."""
+    import torch
+    from zkdl_tpu_torch.io import proof_io
+    from zkdl_tpu_torch.sumcheck.transcript import FiatShamir
+
+    model, X = res["model"], res["X"]
+    Y, Z, A, aux = model.infer(X)
+    want = proof_io.serialize(res["proof"])
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        ckpt = proof_io.ProofCheckpoint(d)
+        for step in ("prove", "resume"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p = proof_io.prove_mlp_checkpointed(model, X, Y, Z, A, aux, FiatShamir(), ckpt, commit_aux=False)
+            torch.cuda.synchronize()
+            out[f"{step}_s"] = time.perf_counter() - t0
+            if proof_io.serialize(p) != want:
+                raise AssertionError(f"checkpointed {step}: not byte-identical to the uninterrupted proof")
+            if step == "prove":
+                files = sorted(os.listdir(d))
+                for name in ("relu_000.npz", "fc_000.npz", "relu_001.npz", "fc_001.npz"):
+                    os.remove(os.path.join(d, name))
+    records["_checkpoint"] = {**out, "files": len(files), "proof_bytes": len(want)}
+    log(f"[checkpoint] zkdl256: checkpointed prove {out['prove_s']:.3f}s ({len(files)} layer files), resumed after "
+        f"removing relu[0], fc[0], relu[1], fc[1] in {out['resume_s']:.3f}s; both byte-identical to phase 4's "
+        f"proof ({len(want)} bytes)")
+
+
+def float_conv(x, k, stride: int, pad: int) -> np.ndarray:
+    """A direct float64 convolution, NHWC input, (kh, kw, C_in, C_out) kernel."""
+    b, h, w, _ = x.shape
+    kh, kw, _, cout = k.shape
+    xp = np.pad(x, ((0, 0), (pad, pad), (pad, pad), (0, 0)))
+    oh, ow = (h + 2 * pad - kh) // stride + 1, (w + 2 * pad - kw) // stride + 1
+    out = np.zeros((b, oh, ow, cout))
+    for i in range(oh):
+        for j in range(ow):
+            out[:, i, j, :] = np.tensordot(xp[:, i * stride: i * stride + kh, j * stride: j * stride + kw, :], k,
+                                           axes=([1, 2, 3], [0, 1, 2]))
+    return out
+
+
+def signed_values(Z, scale_bits: int):
+    """(n, 8) Montgomery Fr holding signed values below 2^62 -> float64, on
+    the card."""
+    import torch
+    from zkdl_tpu_torch.field import mp, planar
+
+    raw = planar.from_mont(planar.to_planar(Z))
+    neg = planar.neg(raw)
+    r, n = mp.i64(raw), mp.i64(neg)
+    pos = (r[2:] == 0).all(0)
+    if not bool((pos | (n[2:] == 0).all(0)).all()):
+        raise AssertionError("a conv output is not a small signed value")
+    v = torch.where(pos, r[0] + (r[1] << 32), -(n[0] + (n[1] << 32)))
+    return v.to(torch.float64) / 2.0**scale_bits
+
+
+def phase_conv(records: dict, device: str = "cuda") -> None:
+    """zkConv2D at CONV_SHAPE, batch CONV_BATCH (MNIST's 28 x 28 with a
+    second conv layer's 32 -> 64 channels; the repo defines no conv model,
+    so this is a layer check): the forward against a float64 convolution
+    within the quantization bound, prove and verify (Fiat-Shamir), a
+    tampered output rejected with the JAX verifier's reason; and
+    tests/test_conv.py's small prove case on the card equal to the CPU
+    proof and to the JAX recorder's, array for array."""
+    import torch
+    from zkdl_tpu_torch.commit import pedersen
+    from zkdl_tpu_torch.field import planar
+    from zkdl_tpu_torch.io import proof_io
+    from zkdl_tpu_torch.models import quantize, zkconv
+    from zkdl_tpu_torch.sumcheck.transcript import FiatShamir
+    from zkdl_tpu_torch.tensor import fr_ops
+    from zkdl_tpu_torch.utils import prng
+
+    shape = zkconv.ConvShape(**CONV_SHAPE)
+    rng = np.random.default_rng(15)
+    x = rng.random((CONV_BATCH, shape.h, shape.w, shape.c_in)).astype(np.float32)  # post-ReLU activations in [0, 1)
+    bound_w = 1.0 / np.sqrt(shape.patch_size)  # nn.Conv2d's initial range
+    k = rng.uniform(-bound_w, bound_w, (shape.kh, shape.kw, shape.c_in, shape.c_out)).astype(np.float32)
+
+    def mont_input(x_np, dev):
+        raw = planar.from_planar(quantize.float_to_fr(torch.from_numpy(x_np.reshape(-1)).to(dev))).contiguous()
+        return pedersen.to_mont_rows(raw)
+
+    dev = torch.device(device)
+    t0 = time.perf_counter()
+    layer = zkconv.ZkConv2D.from_float(k, shape, prng.PRNGKey(5), dev)
+    X = mont_input(x, dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    Z = layer(X, CONV_BATCH)
+    torch.cuda.synchronize()
+    forward_s = time.perf_counter() - t0
+    got = signed_values(Z, 32).reshape(-1, layer.fc.out_size)[:, : shape.c_out].cpu().numpy()
+    got = got.reshape(CONV_BATCH, shape.oh, shape.ow, shape.c_out)
+    want = float_conv(x.astype(np.float64), k.astype(np.float64), shape.stride, shape.pad)
+    # the input and the kernel are rounded to 2^-16 (each error <= 2^-17), the
+    # products and sums are exact: an output's error is at most
+    # 2^-17 sum(|x| + |w|) + n 2^-34 over its n = patch_size taps
+    tol = shape.patch_size * (2.0**-17 * (float(np.abs(x).max()) + float(np.abs(k).max())) + 2.0**-34)
+    err = float(np.abs(got - want).max())
+    log(f"[conv] {shape}, batch {CONV_BATCH}: build {build_s:.3f}s, forward {forward_s:.3f}s; against a float64 "
+        f"convolution max abs err {err:.3e} (|z| max {float(np.abs(want).max()):.3f}), quantization bound {tol:.3e}")
+    if got.shape != want.shape or not np.isfinite(got).all() or err > tol:
+        raise AssertionError(f"the conv forward disagrees with the float64 convolution: {err} > {tol}")
+    t0 = time.perf_counter()
+    proof = layer.prove(X, Z, FiatShamir(), CONV_BATCH)
+    torch.cuda.synchronize()
+    prove_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ok = layer.verify(proof)
+    verify_s = time.perf_counter() - t0
+    if ok != (True, ""):
+        raise AssertionError(f"the conv proof was rejected: {ok}")
+    _, verdicts = slice11_jax()
+    bad = layer.verify(layer.prove(X, fr_ops.add(Z, fr_ops.ones_mont(Z.shape[0], dev)), FiatShamir(), CONV_BATCH))
+    if list(bad) != verdicts["conv_tamper"]:
+        raise AssertionError(f"the tampered conv output got {bad}, the JAX verifier {verdicts['conv_tamper']}")
+    log(f"[conv] prove {prove_s:.3f}s, proof {len(proof_io.serialize(proof))} bytes, verify {verify_s:.3f}s: "
+        f"accepted; Z + 1 rejected: {bad[1]} (the JAX verifier's reason)")
+
+    # tests/test_conv.py's prove case: card == CPU == the JAX recorder
+    arrays, _ = slice11_jax()
+    rng = np.random.default_rng(4)
+    small = zkconv.ConvShape(h=4, w=4, c_in=1, c_out=2, kh=3, kw=3, stride=1, pad=1)
+    xs = (rng.standard_normal((1, 4, 4, 1)) * 0.5).astype(np.float32)
+    ks = (rng.standard_normal((3, 3, 1, 2)) * 0.5).astype(np.float32)
+    flat = {}
+    for d in (device, "cpu"):
+        lay = zkconv.ZkConv2D.from_float(ks, small, prng.PRNGKey(1), d)
+        Xs = mont_input(xs, torch.device(d))
+        out = {}
+        proof_io.flatten(lay.prove(Xs, lay(Xs, 1), FiatShamir(), 1), "p", out)
+        flat[d] = out
+    jax = {k[len("conv_prove/proof:"):]: v for k, v in arrays.items()
+           if k.startswith("conv_prove/proof:") and not k.endswith("__skeleton__")}
+    for other in ("cpu", "jax"):
+        b = flat["cpu"] if other == "cpu" else jax
+        diff = sorted(set(flat[device]) ^ set(b)) + [k for k in b if k in flat[device] and
+                                                      not np.array_equal(flat[device][k], b[k])]
+        if diff:
+            raise AssertionError(f"the small conv proof on the card differs from the {other} one at {diff[:5]}")
+    log(f"[conv] tests/test_conv.py's prove case: the card's proof equals the CPU's and the JAX recorder's "
+        f"({len(jax)} arrays)")
+    records["_conv"] = {"shape": CONV_SHAPE, "batch": CONV_BATCH, "build_s": build_s, "forward_s": forward_s,
+                        "max_abs_err": err, "tolerance": tol, "prove_s": prove_s, "verify_s": verify_s,
+                        "proof_bytes": len(proof_io.serialize(proof))}
 
 
 # ---------------------------------------------------------------------------
@@ -1782,6 +2296,11 @@ def phase_attention(records: dict) -> None:
         raise AssertionError(f"the port's verifier rejected the attention proof: {res['verify_msg']}")
     log(f"[attention] proof {res['proof_bytes']} bytes; accepted by ZkAttention.verify(X, Y, FiatShamir()) in "
         f"{res['verify_s']:.3f}s; kernel launches in the verify: {json.dumps(res['verify_launches'])}")
+    vl = res["verify_launches"]
+    log(f"[attention] the verify made {vl['g1_scalar_mul_glv']} K8 launches (its openings' generator MSMs) and "
+        f"{vl['g1_scalar_mul']} K5 launches, {vl['g1_scalar_mul_glv'] + vl['g1_scalar_mul']} in all")
+    if vl["g1_scalar_mul_glv"] <= 0:
+        raise AssertionError("the attention verify launched no K8")
     records["fr_batch_inverse"]["launches"] = launches["fr_batch_inverse"]
     t_max = int(res["trace"]["sm_wit"]["t"].max())
     log(f"[attention] the softmax witness's largest t is {t_max} (< 2^32: no value loses bits to the 32-bit "
@@ -1858,6 +2377,13 @@ def main() -> int:
         phase_attention(records)
         print(json.dumps({"attention": records["_attention"]}), flush=True)
         return 0
+    if sys.argv[1:] == ["--glv"]:
+        phase_glv(dev, records)
+        for label, (pts, scal) in glv_time_sets(dev).items():
+            time_glv(records, label, pts, scal)
+        print(json.dumps({"g1_scalar_mul_glv_shapes": records["_g1_scalar_mul_glv_shapes"],
+                          "g1_scalar_mul_glv_layouts": glv_layout_sweep(dev)}), flush=True)
+        return 0
     if sys.argv[1:] == ["--var"]:
         phase_var(dev, records)
         print(json.dumps({"g1_scalar_mul_shapes": records["_g1_scalar_mul_shapes"], **phase_var_times(dev)}),
@@ -1865,6 +2391,7 @@ def main() -> int:
         return 0
     phase_kernels(records)
     phase_var(dev, records)
+    phase_glv(dev, records)
     records["_var_times"] = phase_var_times(dev)
     log(f"[time] phases 1-2: {time.perf_counter() - t0:.1f}s")
     phase_small()
@@ -1873,10 +2400,15 @@ def main() -> int:
     log(f"[time] phase 4: {time.perf_counter() - t0:.1f}s")
     phase_committed(records, res)
     log(f"[time] phase 6 (committed): {time.perf_counter() - t0:.1f}s")
+    phase_blinded(res, records)
+    phase_checkpoint(res, records)
+    log(f"[time] phase 8 (blinded, checkpoint): {time.perf_counter() - t0:.1f}s")
     phase_demo(records)
     phase_schedules(records, res)
     del res
     log(f"[time] phase 5: {time.perf_counter() - t0:.1f}s")
+    phase_conv(records)
+    log(f"[time] phase 8 (conv): {time.perf_counter() - t0:.1f}s")
     phase_k7(records)
     phase_attention(records)
     log(f"[time] phase 7 (attention): {time.perf_counter() - t0:.1f}s")
@@ -1896,7 +2428,11 @@ def main() -> int:
                       "g1_add_shapes": records["_g1_add_shapes"], "var_times": records["_var_times"],
                       "zkdl256": records["_zkdl256"],
                       "committed": records["_committed"], "demo": records["_demo"],
-                      "schedules": records["_schedules"], "attention": records["_attention"]}), flush=True)
+                      "schedules": records["_schedules"], "attention": records["_attention"],
+                      "g1_scalar_mul_glv_shapes": records["_g1_scalar_mul_glv_shapes"],
+                      "to_port_bounds": records["_to_port_bounds"],
+                      "blinded": records["_blinded"], "checkpoint": records["_checkpoint"],
+                      "conv": records["_conv"]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -36,6 +36,7 @@ P = fp.P_INT
 R = fr.P_INT
 M32 = (1 << 32) - 1
 SRC = (build.CSRC / "g1_var.cu").read_text()
+VAR_SRC = (build.CSRC / "g1_var.cuh").read_text()  # Var, the formulas K5 and K8 share
 TEAM_SRC = (build.CSRC / "fp_team.cuh").read_text()
 COFACTOR = 0x396C8C005555E1568C00AAAB0000AAAB
 
@@ -158,8 +159,8 @@ def test_line_model_matches_plain_and_oracle():
 
 
 def _body(name: str) -> str:
-    """The body of Var::<name> in g1_var.cu."""
-    m = re.search(rf"__device__ static \w+ {name}\(const T& tm,[^)]*\) \{{\n(.*?)\n  \}}\n", SRC, re.S)
+    """The body of Var::<name> in g1_var.cuh."""
+    m = re.search(rf"__device__ static \w+ {name}\(const T& tm,[^)]*\) \{{\n(.*?)\n  \}}\n", VAR_SRC, re.S)
     return m.group(1)
 
 

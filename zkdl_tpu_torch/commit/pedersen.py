@@ -5,9 +5,12 @@ Counterpart of ``zkdl_tpu/commit/pedersen.py``: ``Generators``,
 ``RowCommitments``, ``OpeningProof`` (:59-121), ``setup`` (:134-143),
 ``aux_generators`` (:146-155), ``commit`` with the dlog fast path and the
 opaque-generator branch (:157-200), ``open_planar`` (:328-399), the host verifier ``verify_open``
-(:421-464) and ``verify_open_against_com`` (:803-826); and the committed-aux
-tier: ``nums_generators`` (:607-643), ``commit_bits`` (:646-671),
-``FoldOpening``, ``open_reveal`` and ``verify_reveal`` (:674-794).
+(:421-464) and ``verify_open_against_com`` (:803-826); the blinded tier:
+``blinding_point``, ``BlindedRowCommitments``, ``commit_blinded``,
+``open_blinded`` and ``verify_open_blinded`` (:483-579); and the
+committed-aux tier: ``nums_generators`` (:607-643), ``commit_bits``
+(:646-671), ``FoldOpening``, ``open_reveal`` and ``verify_reveal``
+(:674-794).
 
 The setup draws every generator's discrete log itself (a transparent
 stand-in for an SRS, as the reference's demo does), so all G1 tensor work
@@ -17,9 +20,9 @@ the fixed-base comb (``curve/g1.py:generator_pow``, kernel K4).
 
 The committed-aux tier has no dlogs: its NUMS generators are hashed to the
 curve, so its commitments are masked generator sums (K6) and its verifier
-recomputes a generator MSM and the row commitments' MLE with K5 and K6
-(``curve/g1.py``), on the card for CUDA tensors and with the plain versions
-on the CPU.
+recomputes a generator MSM (K8) and the row commitments' MLE (K5, K6)
+(``curve/g1.py``) on the card for CUDA tensors, in the native host library
+for CPU ones.
 
 Reference quirk kept: the opening's cross-term exponents are the Montgomery
 REPRESENTATION bits of the scalars (the R-scaled group elements), exactly as
@@ -312,30 +315,131 @@ def verify_open(proof: OpeningProof, u, expected_value: int | None = None) -> tu
 
 def verify_open_against_com(proof: OpeningProof, com: RowCommitments, u) -> tuple[bool, str]:
     """Bind the opening to the row commitments: fold them on the host down
-    to com(u_row), P_{2i} + u*(P_{2i+1} - P_{2i}) per level (u_row = the
-    last log_m entries of u, an odd level padded with the identity), one
-    native batch of scalar multiplications a level, and compare with the
-    proof's com_at_u_row in affine form."""
-    m = com.points.x.shape[0]
-    log_m = fr_ops.ceil_log2(m)
-    u_row = list(u[len(u) - log_m :]) if log_m else []
+    to com(u_row) (_fold_rows) and compare with the proof's com_at_u_row in
+    affine form."""
+    if not host_g1.eq_points(_point(proof.com_at_u_row), _fold_rows(com, u)):
+        return False, "com(u_row) mismatch"
+    return True, ""
+
+
+def _fold_rows(com: RowCommitments, u) -> host_g1.JacPoint:
+    """The row commitments' MLE at u_row (the last log_m entries of u) on
+    the host: P_{2i} + u*(P_{2i+1} - P_{2i}) per level, an odd level padded
+    with the identity, one native batch of scalar multiplications a level."""
+    log_m = fr_ops.ceil_log2(com.points.x.shape[0])
     pts = convert.jac_from_device(com.points)
-    for uk in u_row:
+    for uk in list(u[len(u) - log_m :]) if log_m else []:
         if len(pts) % 2:
             pts.append(host_g1.IDENTITY)
         diffs = [host_g1.add(pts[2 * i + 1], host_g1.neg(pts[2 * i])) for i in range(len(pts) // 2)]
         steps = host_g1.scalar_mul_batch(diffs, [HF.unmont(uk)] * len(diffs))
         pts = [host_g1.add(pts[2 * i], s) for i, s in enumerate(steps)]
-    if not host_g1.eq_points(_point(proof.com_at_u_row), pts[0]):
-        return False, "com(u_row) mismatch"
-    return True, ""
+    return pts[0]
+
+
+# ---------------------------------------------------------------------------
+# blinded (hiding) commitments: C_row = G^sigma_row * H^b_row
+# ---------------------------------------------------------------------------
+
+_G1_COFACTOR = 0x396C8C005555E1568C00AAAB0000AAAB  # (x-1)^2 / 3
+
+_BLINDING: dict = {}  # device -> H
+
+
+def blinding_point(device) -> g1.G1Jac:
+    """H, a (1,) point (pedersen.py:blinding_point :483-501): the first
+    curve point of a domain-separated hash-to-curve stream (never the NUMS
+    generators' stream), x = SHA256("zkdl-tpu/nums-blind/v1/<ctr>") ||
+    SHA256(".../<ctr>/b") mod p with the smaller sqrt of x^3 + 4 as y,
+    cofactor-cleared by the host double-and-add (the JAX code's Jacobian
+    limbs); cached per device. The JAX loop never increments ctr and so
+    never returns (ctr 0 gives no curve point); here ctr counts up, and H
+    is the candidate of ctr 1."""
+    dev = torch.device(device)
+    if dev not in _BLINDING:
+        p, ctr = fp.P_INT, 0
+        while True:
+            h1 = hashlib.sha256(f"zkdl-tpu/nums-blind/v1/{ctr}".encode()).digest()
+            h2 = hashlib.sha256(f"zkdl-tpu/nums-blind/v1/{ctr}/b".encode()).digest()
+            x = int.from_bytes(h1 + h2, "big") % p
+            rhs = (x * x % p * x + 4) % p
+            y = pow(rhs, (p + 1) // 4, p)
+            if y * y % p == rhs:
+                break
+            ctr += 1
+        pt = host_g1.scalar_mul(host_g1.JacPoint(x, min(y, p - y), 1), _G1_COFACTOR)
+        if pt.is_identity():
+            raise AssertionError("blinding point cofactor-cleared to identity")
+        _BLINDING[dev] = convert.jac_to_device([pt], dev)
+    return _BLINDING[dev]
+
+
+@dataclasses.dataclass
+class BlindedRowCommitments:
+    """Hiding row commitments and the prover's blinders (secret; only their
+    folds are revealed, one per opening)."""
+
+    points: g1.G1Jac  # (m,) G^sigma_row * H^b_row
+    blinders: torch.Tensor  # (m, 8) Montgomery
+
+    @property
+    def public(self) -> RowCommitments:
+        return RowCommitments(points=self.points)
+
+
+def commit_blinded(gens: Generators, t: torch.Tensor, key) -> BlindedRowCommitments:
+    """Hiding commitment on the transparent setup (pedersen.py:commit_blinded
+    :517-532): sigma_row by one lazy dot a row (K3), G^sigma_row by the comb
+    (K4), fresh blinders b_row = random_fr(key, m) in Montgomery form,
+    H^b_row by GLV (K8, as the JAX package on an accelerator; its CPU branch
+    takes double-and-add, group-equal) and the sum (K6). No transcript
+    absorbs these points."""
+    if gens.dlogs is None:
+        raise ValueError("blinded commit implemented on the fast path")
+    gen_size = gens.size
+    m = t.shape[0] // gen_size
+    sigma = _commit_rows_fast(t.reshape(m, gen_size, 8), gens.dlogs)
+    g_part = g1.generator_pow(from_mont_rows(sigma))
+    raw = fr_ops.random_fr(key, m, t.device)  # unmont(b)
+    H = blinding_point(t.device)
+    h_part = g1.scalar_mul_glv(g1.G1Jac(*(c.expand(m, 12) for c in H)), raw)
+    return BlindedRowCommitments(points=g1.add(g_part, h_part), blinders=to_mont_rows(raw))
+
+
+def open_blinded(gens: Generators, t: torch.Tensor, com: BlindedRowCommitments, u):
+    """Opening against a blinded commitment (pedersen.py:open_blinded
+    :535-549): the transparent opening of the unblinded rows, whose
+    com_at_u_row is G^sigma(u_row), and the blinders' fold b(u_row) ((8,)
+    Montgomery; K2), the one blinder value revealed. Returns (proof, b_fold)."""
+    u = mp.host(u)
+    gen_size = gens.size
+    m = com.points.x.shape[0]
+    log_m = fr_ops.ceil_log2(m)
+    if gen_size != (1 << (u.shape[0] - log_m)):
+        raise ValueError(f"open_blinded: gen size {gen_size} vs point {u.shape} and {log_m} row bits")
+    sigma = _commit_rows_fast(t.reshape(m, gen_size, 8), gens.dlogs)
+    unblinded = RowCommitments(points=g1.generator_pow(from_mont_rows(sigma)), dlogs=sigma)
+    proof = open_planar(gens, t, unblinded, u)
+    b_fold = fr_ops.me_eval(com.blinders, u[u.shape[0] - log_m :]) if log_m else com.blinders[0]
+    return proof, b_fold
+
+
+def verify_open_blinded(proof: OpeningProof, com: RowCommitments, u, b_fold: int,
+                        expected_value: int | None = None) -> tuple[bool, str]:
+    """Verify an opening against blinded row commitments (pedersen.py:
+    verify_open_blinded :552-579): fold the public points at u_row on the
+    host (one native batch a level, as verify_open_against_com), unblind by
+    H^-b(u_row), compare with the proof's com_at_u_row in affine form, then
+    verify_open. b_fold: the revealed fold as a Montgomery int."""
+    (hb,) = host_g1.scalar_mul_batch([_point(g1.G1Jac(*(c[0] for c in blinding_point("cpu"))))], [HF.unmont(b_fold)])
+    if not host_g1.eq_points(_point(proof.com_at_u_row), host_g1.add(_fold_rows(com, u), host_g1.neg(hb))):
+        return False, "unblinded com(u_row) mismatch"
+    return verify_open(proof, u, expected_value=expected_value)
 
 
 # ---------------------------------------------------------------------------
 # committed-aux tier: NUMS generators, bit commitments, revealed-fold openings
 # ---------------------------------------------------------------------------
-
-_G1_COFACTOR = 0x396C8C005555E1568C00AAAB0000AAAB  # (x-1)^2 / 3
 
 _NUMS_STREAM: list = []  # accepted curve points (ctr, x, y), before cofactor clearing
 
@@ -491,11 +595,15 @@ def _split_point(com: RowCommitments, u) -> tuple[list[int], list[int]]:
 
 
 def _reveal_group_math(checks, live):
-    """The openings' MSMs and row-commitment MLEs on the device (K5, K6):
-    ({k: msm}, {k: mle}) as host points, and {k: u_in}."""
+    """The openings' MSMs and row-commitment MLEs on the device: every
+    generator product in one GLV launch (K8, as the JAX package's
+    _verify_reveal_dev on an accelerator; the verdict compares affine
+    points), the sums and folds by K6, the folds' products by K5 (me_step
+    takes double-and-add in both packages): ({k: msm}, {k: mle}) as host
+    points, and {k: u_in}."""
     msm_pts = _cat([checks[k][1].points for k in live])
     msm_scalars = torch.cat([from_mont_rows(checks[k][0].t_folded) for k in live])
-    products = _split(g1.scalar_mul(msm_pts, msm_scalars), [checks[k][1].size for k in live])
+    products = _split(g1.scalar_mul_glv(msm_pts, msm_scalars), [checks[k][1].size for k in live])
     msms = {}
     for size in sorted({checks[k][1].size for k in live}):
         group = [i for i, k in enumerate(live) if checks[k][1].size == size]

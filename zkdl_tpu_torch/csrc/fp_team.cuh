@@ -264,6 +264,9 @@ struct Team {
   __device__ void store(uint32_t* __restrict__ base, int64_t off, uint32_t v) const {
     if (k < NL) base[off + k] = v;
   }
+  // load of words this kernel wrote (a plain load: __ldg's read-only path
+  // is not coherent with the kernel's own stores)
+  __device__ uint32_t load_rw(const uint32_t* base, int64_t off) const { return k < NL ? base[off + k] : 0u; }
 };
 
 // An Fp value is three uint32_t a lane: lane k's limbs 3k .. 3k + 2. Four
@@ -467,6 +470,12 @@ struct Quad {
 #pragma unroll
     for (int j = 0; j < L; ++j) base[off + L * k + j] = v.w[j];
   }
+  __device__ Fp load_rw(const uint32_t* base, int64_t off) const {
+    Fp r;
+#pragma unroll
+    for (int j = 0; j < L; ++j) r.w[j] = base[off + L * k + j];
+    return r;
+  }
 };
 
 // An Fp value is twelve uint32_t a lane: a team is one lane, two lanes
@@ -529,6 +538,12 @@ struct Solo {
   __device__ void store(uint32_t* __restrict__ base, int64_t off, const Fp& v) const {
 #pragma unroll
     for (int j = 0; j < NL; ++j) base[off + j] = v.w[j];
+  }
+  __device__ Fp load_rw(const uint32_t* base, int64_t off) const {
+    Fp r;
+#pragma unroll
+    for (int j = 0; j < NL; ++j) r.w[j] = base[off + j];
+    return r;
   }
 };
 

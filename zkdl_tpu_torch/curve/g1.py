@@ -1,11 +1,12 @@
 """BLS12-381 G1 in Jacobian coordinates: the fixed-base comb (kernel K4) and
-the variable-base arithmetic (kernels K5 and K6).
+the variable-base arithmetic (kernels K5, K6 and K8).
 
 Counterpart of ``zkdl_tpu/curve/g1.py``: ``G1Jac``, ``identity``,
 ``is_identity``, ``neg``, ``select``, ``double``, ``add``, ``add_mixed``,
-``scalar_mul``, ``_comb_table``, ``generator_pow``, ``g1_sum``, ``me_step``
-and ``me_eval``. Points are three uint32 (..., 12) Montgomery Fp tensors;
-z == 0 encodes the identity.
+``scalar_mul``, the GLV split (``glv_decompose``, ``endomorphism``,
+``_window_digits``, ``_mk_table``) and ``scalar_mul_glv``, ``_comb_table``,
+``generator_pow``, ``g1_sum``, ``me_step`` and ``me_eval``. Points are three
+uint32 (..., 12) Montgomery Fp tensors; z == 0 encodes the identity.
 
 ``generator_pow`` on a CUDA tensor launches K4 (``csrc/g1_comb.cu``), which
 replaces the XLA loop of g1.py:generator_pow (:378-397): a warp walks the 64
@@ -24,6 +25,12 @@ products on two teams of lanes (K4's teams, ``csrc/fp_team.cuh``), one,
 four or sixteen points a warp, chosen by the launch's size
 (``SCALAR_MUL_FORMS``). K6 lists each block's generic pairs and runs them
 densely, one thread an add. On CPU tensors they run ``scalar_mul_plain``/``add_plain``/``add_bits_plain``.
+
+``scalar_mul_glv`` on CUDA tensors launches K8 (``csrc/g1_glv.cu``), which
+replaces the XLA loop of g1.py:scalar_mul_glv (:302-326) limb for limb: the
+scalar split in the kernel, a point's two 16-entry tables in a device
+scratch, the window walk on K5's layouts and formulas. On CPU tensors it
+runs ``scalar_mul_glv_plain``.
 """
 
 from __future__ import annotations
@@ -56,8 +63,9 @@ class G1Jac(NamedTuple):
 COMB = Kernel("g1_comb", "zkdl_tpu_torch/csrc/g1_comb.cu", "zkdl_tpu/curve/g1.py:378")
 SCALAR_MUL = Kernel("g1_scalar_mul", "zkdl_tpu_torch/csrc/g1_var.cu", "zkdl_tpu/curve/g1.py:168")
 ADD = Kernel("g1_add", "zkdl_tpu_torch/csrc/g1_var.cu", "zkdl_tpu/curve/g1.py:106")
-KERNELS = (COMB, SCALAR_MUL, ADD)
-# K5's layouts (csrc/g1_var.cu): chosen by the launch's size, or forced
+GLV = Kernel("g1_scalar_mul_glv", "zkdl_tpu_torch/csrc/g1_glv.cu", "zkdl_tpu/curve/g1.py:302")
+KERNELS = (COMB, SCALAR_MUL, ADD, GLV)
+# K5's and K8's layouts (csrc/g1_var.cu, g1_glv.cu): chosen by the launch's size, or forced
 SCALAR_MUL_FORMS = {"auto": 0, "warp": 1, "quad": 2, "pair": 3}
 
 _COMB_W = 4
@@ -487,6 +495,141 @@ def scalar_mul(p: G1Jac, scalar: torch.Tensor, form: str = "auto") -> G1Jac:
         sc = scalar.reshape(-1, 8).contiguous()
         out = _launch(SCALAR_MUL, functools.partial(_var_lib().zk_g1_scalar_mul_form, SCALAR_MUL_FORMS[form]), dev,
                       pr.x.shape[0], *(c.data_ptr() for c in pr), ps, sc.data_ptr(), 0 if scalar.dim() == 1 else 8)
+    return G1Jac(*(c.reshape(*shape, 12) for c in out))
+
+
+# --- GLV scalar multiplication: K8 ------------------------------------------
+#
+# g1.py:225-327. BLS12-381 G1 has the endomorphism phi(x, y) = (beta x, y)
+# with phi(P) = lambda P, lambda = X^2 - 1 for the BLS parameter X. A scalar
+# s < r splits by integer division as s = s1 + lambda s2 (both < 2^128), and
+# s P = s1 P + s2 phi(P) by a dual 4-bit window walk over 33 windows.
+
+_X_BLS = -0xD201000000010000
+_LAMBDA_INT = _X_BLS**2 - 1  # 128 bits
+_BETA_INT = 0x1A0111EA397FE699EC02408663D4DE85AA0D857D89759AD4897D29650FB85F9B409427EB4F49FFFD8BFD00000000AAAC
+_M_BARRETT = (1 << 256) // _LAMBDA_INT  # 129 bits
+
+assert fr.P_INT == _X_BLS**4 - _X_BLS**2 + 1, "BLS parameter"
+assert (_LAMBDA_INT**2 + _LAMBDA_INT + 1) % fr.P_INT == 0, "lambda order"
+assert pow(_BETA_INT, 3, fp.P_INT) == 1 and _BETA_INT != 1, "beta order"
+
+_BETA_MONT = mp.limbs_from_int(fp.SPEC.to_mont_int(_BETA_INT), 12)
+_GLV_WINDOW = 4
+_GLV_BITS = 132  # ceil over 129 to a window multiple
+_GLV_WINDOWS = _GLV_BITS // _GLV_WINDOW
+_GLV_TABLE_WORDS = 2 * (1 << _GLV_WINDOW) * 3 * 12  # K8's scratch a point: two tables of 16 (x, y, z)
+
+
+def glv_decompose(scalar: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(..., 8) raw scalars -> (s1, s2), (..., 8) each, with s = s1 +
+    lambda s2 and 0 <= s1 < lambda (g1.py:glv_decompose :251): the exact
+    integer division, on the host. For s < 2^128 lambda (every s < r) this
+    is the JAX Barrett division's result; above it the JAX quotient loses
+    its bits past 2^128, and this one keeps them (s2 < 2^129)."""
+    rows = mp.host(scalar).reshape(-1, 8)
+    qr = [divmod(mp.int_from_limbs(r), _LAMBDA_INT) for r in rows]
+    s1 = np.stack([mp.limbs_from_int(r, 8) for _, r in qr]) if qr else np.zeros((0, 8), np.uint32)
+    s2 = np.stack([mp.limbs_from_int(q, 8) for q, _ in qr]) if qr else np.zeros((0, 8), np.uint32)
+    return tuple(torch.from_numpy(a).to(scalar.device).reshape(scalar.shape) for a in (s1, s2))
+
+
+def _endo_w(p):
+    x, y, z = p
+    return fp.mul_w(x, mp.const(_BETA_MONT, x).expand_as(x)), y, z
+
+
+def endomorphism(p: G1Jac) -> G1Jac:
+    """phi(x, y, z) = (beta x, y, z): one Fp product (g1.py:endomorphism :276)."""
+    return _stored(_endo_w(tuple(fp.to_work(c) for c in p)))
+
+
+def _window_digits(scalar: torch.Tensor) -> torch.Tensor:
+    """(..., 8) -> int64 (..., 33) 4-bit windows of the low 5 limbs, LSB
+    first (g1.py:_window_digits :287)."""
+    shifts = torch.arange(0, 32, _GLV_WINDOW, device=scalar.device)
+    d = (mp.i64(scalar[..., :5]).unsqueeze(-1) >> shifts) & ((1 << _GLV_WINDOW) - 1)
+    return d.reshape(*scalar.shape[:-1], 40)[..., :_GLV_WINDOWS]
+
+
+def _mk_table_w(p):
+    """[O, p, add(t[1], p), ..., add(t[14], p)] (g1.py:_mk_table :294) as
+    three int64 (16, 12, n) stacks of the working form."""
+    zero = torch.zeros_like(p[0])
+    table = [(zero, zero, zero), p]
+    for k in range(2, 1 << _GLV_WINDOW):
+        table.append(_add_w(table[k - 1], p))
+    return tuple(torch.stack([t[c] for t in table]) for c in range(3))
+
+
+def _lookup_w(table, d):
+    """Entry d[i] of every point i's table (the take_along_axis of g1.py:313)."""
+    idx = d.view(1, 1, -1).expand(1, 12, d.shape[0])
+    return tuple(torch.gather(t, 0, idx)[0] for t in table)
+
+
+def _scalar_mul_glv_w(p, scalar):
+    """g1.py:scalar_mul_glv's walk over the working form: from the identity,
+    per window from the top four doubles, an add of t1[d1] and one of
+    t2[d2]. The windows above the highest nonzero digit of every point are
+    skipped: there the walk doubles the identity (0, 0, 0) and adds table[0]
+    = (0, 0, 0), which leaves the same limbs."""
+    s1, s2 = glv_decompose(scalar)
+    d1, d2 = _window_digits(s1), _window_digits(s2)
+    t1, t2 = _mk_table_w(p), _mk_table_w(_endo_w(p))
+    live = ((d1 != 0) | (d2 != 0)).any(0).nonzero()
+    zero = torch.zeros_like(p[0])
+    out = (zero, zero, zero)
+    for i in range(int(live.max()) if live.numel() else -1, -1, -1):
+        for _ in range(_GLV_WINDOW):
+            out = _double_w(out)
+        out = _add_w(out, _lookup_w(t1, d1[:, i]))
+        out = _add_w(out, _lookup_w(t2, d2[:, i]))
+    return out
+
+
+def scalar_mul_glv_plain(p: G1Jac, scalar: torch.Tensor) -> G1Jac:
+    """scalar * p by g1.py:scalar_mul_glv (:302-326), limb for limb, for
+    (n,) points and (n, 8) raw scalars, plain PyTorch on any device."""
+    p = _flat(p)
+    n = p.x.shape[0]
+    sc = scalar.reshape(n, 8)
+    return _chunked(n, lambda lo, hi: _stored(_scalar_mul_glv_w(_work(p, lo, hi), sc[lo:hi]))) \
+        or identity((0,), p.x.device)
+
+
+def _glv_lib() -> ctypes.CDLL:
+    lib = build.load("g1_glv")
+    if not getattr(lib, "_zk_typed", False):
+        P, I = ctypes.c_void_p, ctypes.c_longlong
+        lib.zk_g1_glv.argtypes = [ctypes.c_int, P, P, P, I, P, P, P, P, P, I, P, ctypes.c_int]
+        lib.zk_g1_glv.restype = ctypes.c_int
+        lib._zk_typed = True
+    return lib
+
+
+def scalar_mul_glv(p: G1Jac, scalar: torch.Tensor, form: str = "auto") -> G1Jac:
+    """scalar * p by g1.py:scalar_mul_glv, limb for limb (group-equal to
+    scalar_mul, not limb-equal). scalar: raw uint32 (*p.shape, 8), one per
+    point. K8 on CUDA tensors, in the layout
+    ``form`` (a key of SCALAR_MUL_FORMS; every form gives the same bits),
+    with a scratch of 4608 bytes a point for its tables; the plain version
+    on CPU ones. The endomorphism split is group-correct for points in the
+    order-r subgroup only (the JAX package's glv_safe generators)."""
+    _check_points(p)
+    shape = p.shape
+    if scalar.dtype != torch.uint32 or tuple(scalar.shape) != (*shape, 8):
+        raise ValueError(f"scalar_mul_glv: scalars {scalar.dtype} {tuple(scalar.shape)} for points {tuple(shape)}")
+    dev = _device(scalar, *p)
+    if dev.type == "cpu":
+        out = scalar_mul_glv_plain(p, scalar)
+    else:
+        pr, ps = _rows_and_stride(p)
+        n = pr.x.shape[0]
+        sc = scalar.reshape(-1, 8).contiguous()
+        table = torch.empty((max(n, 1), _GLV_TABLE_WORDS), dtype=torch.uint32, device=dev)
+        out = _launch(GLV, functools.partial(_glv_lib().zk_g1_glv, SCALAR_MUL_FORMS[form]), dev, n,
+                      *(c.data_ptr() for c in pr), ps, sc.data_ptr(), table.data_ptr())
     return G1Jac(*(c.reshape(*shape, 12) for c in out))
 
 

@@ -37,6 +37,7 @@ OURS = {
     "g1_comb_kernel": "K4 g1_comb",
     "g1_scalar_mul_kernel": "K5 g1_scalar_mul",
     "g1_add_kernel": "K6 g1_add",
+    "g1_glv_kernel": "K8 g1_scalar_mul_glv",
 }
 
 
