@@ -11,15 +11,20 @@ builds and runs.
     python3 chip_smoke.py --k7-times    # K7 times only, on seeded inputs
     python3 chip_smoke.py --glv         # phase 1, K8 against plain on its edges, and K8 (beside K5)
                                         # timed at the verify's MSM shape and the blinded tier's H^b
+    python3 chip_smoke.py --glv-times [FILE]   # K8 times only, in each of its forms, at those two
+                                               # shapes (and FILE's launches replayed)
+    python3 chip_smoke.py --save-k8-launches FILE  # every phase; phase 6 writes one committed
+                                                   # verify's K8 launches to FILE
 
-`--comb`, `--var-times` and `--k7-times` time K4 (and K5, K6; K7) on the same
-seeded inputs in any checkout of the port they are copied into, so that two
-versions can be compared in one call.
+`--comb`, `--var-times`, `--k7-times` and `--glv-times` time K4 (and K5, K6;
+K7; K8) on the same seeded inputs in any checkout of the port they are copied
+into, so that two versions can be compared in one call.
 
 Phases (each prints its own lines; any failure exits nonzero):
   1. the card's name and power limit, the host CPU's model; build of every
      CUDA kernel from csrc/ and of the verifier's host library (native/),
-     all compilers started together
+     all compilers started together; the registers and spill bytes of each
+     K8 instantiation (ptxas)
   2. each kernel against its plain PyTorch version on the card, bit for bit,
      with its time at a main-path shape beside its bound; K3 also at the
      shapes where its design can break (one warp, the last-block reduction,
@@ -37,9 +42,10 @@ Phases (each prints its own lines; any failure exits nonzero):
      6,656 seeded points, random scalars below r), K6 at a mag_bin
      commitment's first two levels (2^23 and 2^22 pairs, bits drawn at a
      real commitment's set-bit share); K8 (GLV scalar multiplication) in
-     each layout on the decomposition's edge scalars (0, 1, lambda - 1,
+     each form on the decomposition's edge scalars (0, 1, lambda - 1,
      lambda, lambda + 1, r - 1) on G, a random point, O and (r^2, -r^3, 0)
-     at 1 to 257 points, and against K5 in affine form
+     at 1 to 257 points and on points of order 3 (off the subgroup: K8
+     builds their second table by adds), and against K5 in affine form
   3. a small model proved on the card and on the CPU (plain versions): every
      proof array identical, unchained SeededRng and chained Fiat-Shamir; the
      card's proof accepted by the port's verifier on the card and, moved to
@@ -224,9 +230,11 @@ def max_abs_err(a, b) -> int:
 # ---------------------------------------------------------------------------
 
 
-def phase_build(host_library: bool = True) -> None:
+def phase_build(host_library: bool = True, check_spills: bool = True) -> None:
     """host_library=False builds the CUDA kernels only (--comb, which also
-    runs in checkouts that predate the host library)."""
+    runs in checkouts that predate the host library); check_spills: fail if
+    ptxas spilled in any K8 instantiation (False where a times-only mode
+    builds another checkout's K8)."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -246,6 +254,52 @@ def phase_build(host_library: bool = True) -> None:
     log(f"[build] kernels and the verifier's host library built in {secs:.2f}s (0 = already built)")
     for name in build.SOURCES:
         log(f"[build] {name}: " + build.ptxas_report(name).replace("\n", " | "))
+    k8 = ptxas_entries("g1_glv")
+    for entry, info in k8.items():
+        log(f"[build] K8 {entry}: {info.get('registers')} registers, {info.get('spill_stores')} bytes spill "
+            f"stores, {info.get('spill_loads')} bytes spill loads, {info.get('stack')} bytes stack frame")
+    spilled = [e for e, info in k8.items() if info.get("spill_stores", 0) or info.get("spill_loads", 0)]
+    if check_spills and (spilled or not k8):
+        raise AssertionError(f"K8 spills in {spilled}" if k8 else "no ptxas report of K8")
+
+
+def ptxas_entries(name: str) -> dict:
+    """Each kernel of csrc/<name>.cu's last build as ptxas reported it:
+    {"g1_glv_kernel<Pair, 1>": {"registers", "spill_stores",
+    "spill_loads", "stack"}}, template arguments read from the mangled
+    name."""
+    import re
+
+    from zkdl_tpu_torch.utils import build
+
+    path = build.library_path(name).with_suffix(".log")
+    out, entry, props = {}, None, None
+    for line in path.read_text().splitlines() if path.exists() else []:
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = props = m.group(1)
+            out[entry] = {}
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and props in out:
+            out[props].update(zip(("stack", "spill_stores", "spill_loads"), map(int, m.groups())))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry in out:
+            out[entry]["registers"] = int(m.group(1))
+
+    def label(mangled: str) -> str:
+        m = re.search(r"(\d+)(\w+?_kernel)I(.*?)EEv", mangled)
+        if not m:
+            return mangled
+        args = [a or b for a, b in re.findall(r"NS_\d+(\w+?)E|Li(\d+)E", m.group(3))]
+        return f"{m.group(2)}<{', '.join(args)}>"
+
+    return {label(k): v for k, v in out.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -638,13 +692,30 @@ GLV_SIZES = (1, 2, 3, 5, 17, 33, 255, 257)
 BLIND_ROWS = 2048  # zkdl256's 2048 x 2048 layers: 2048 rows over 2048 generators, an H^b a row
 
 
+def glv_derives(pts):
+    """Per point (a CPU bool tensor), whether K8 derives phi(P)'s table from
+    P's by one product an entry: P is not the identity and no jP, j = 2..14,
+    is the identity (then the JAX adds t[j] = add(t[j - 1], P) of t1 from
+    t[3] on all run the generic formula; by add_plain, not a kernel)."""
+    from zkdl_tpu_torch.curve import g1
+
+    pts = g1.G1Jac(*(c.reshape(-1, 12) for c in pts))
+    ok, t = ~g1.is_identity(pts), pts
+    for _ in range(13):
+        t = g1.add_plain(t, pts)
+        ok &= ~g1.is_identity(t)
+    return ok.cpu()
+
+
 def glv_work(pts, scal) -> tuple[int, int, int]:
     """(doubles, generic adds, Fp products) of GLV on this data, as the JAX
-    formulas count them: per point that is not the identity, the tables'
-    2 doubles (t[2] = add(p, p)) and 26 generic adds and phi's one product;
-    4 doubles a window below the point's highest nonzero window, and a
-    generic add for each nonzero digit after its first (the first adds to
-    the identity)."""
+    formulas count them, with the second table as K8 builds it: per point
+    that is not the identity, t1's double (t[2] = add(p, p)) and 13 generic
+    adds and phi's product, then t2 by 14 products where K8 derives it
+    (glv_derives) and by a double and 13 adds where it does not; 4 doubles
+    a window below the point's highest nonzero window, and a generic add
+    for each nonzero digit after its first (the first adds to the
+    identity)."""
     import torch
     from zkdl_tpu_torch.curve import g1
 
@@ -653,18 +724,20 @@ def glv_work(pts, scal) -> tuple[int, int, int]:
     nz = (d1 != 0) | (d2 != 0)
     top = torch.where(nz, torch.arange(nz.shape[1]), -1).max(1).values
     live = ~g1.is_identity(pts).cpu()
+    derived = int(glv_derives(pts).sum().item())
+    built = int(live.sum().item()) - derived
     digits = (d1 != 0).sum(1) + (d2 != 0).sum(1)
-    dbl = int((4 * top.clamp(min=0))[live].sum().item()) + 2 * int(live.sum().item())
-    adds = int((digits - 1).clamp(min=0)[live].sum().item()) + 26 * int(live.sum().item())
-    return dbl, adds, int(live.sum().item())
+    dbl = int((4 * top.clamp(min=0))[live].sum().item()) + int(live.sum().item()) + built
+    adds = int((digits - 1).clamp(min=0)[live].sum().item()) + 13 * int(live.sum().item()) + 13 * built
+    return dbl, adds, int(live.sum().item()) + 14 * derived
 
 
 def glv_bound(pts, scal) -> tuple[float, str]:
     """K8's least time: points and scalars read and the products written
     once, against the multiply-adds of this data's GLV (glv_work; the
     tables are scratch, not counted as traffic)."""
-    dbl, adds, phi = glv_work(pts, scal)
-    return bound_ms(pts.x.shape[0] * (3 * 48 * 2 + 32), dbl * G1_DBL_IMAD + adds * G1_ADD_IMAD + phi * FP_MUL_IMAD)
+    dbl, adds, muls = glv_work(pts, scal)
+    return bound_ms(pts.x.shape[0] * (3 * 48 * 2 + 32), dbl * G1_DBL_IMAD + adds * G1_ADD_IMAD + muls * FP_MUL_IMAD)
 
 
 def windowed_bound(pts, scal) -> tuple[float, str]:
@@ -699,6 +772,14 @@ def ntt_bound(log_n: int) -> tuple[float, str]:
 NTT_LOG_N = 20  # the size at which PERF.md states _ntt_core's bound
 
 
+def glv_forms() -> dict:
+    """K8's forms in this checkout (GLV_FORMS; before it K8 took K5's
+    SCALAR_MUL_FORMS)."""
+    from zkdl_tpu_torch.curve import g1
+
+    return getattr(g1, "GLV_FORMS", g1.SCALAR_MUL_FORMS)
+
+
 def glv_edges(dev):
     """K8's edge inputs: the decomposition's edge scalars 0, 1, lambda - 1,
     lambda, lambda + 1 and r - 1 on G, a random point (z != 1), the identity
@@ -728,63 +809,73 @@ def glv_edges(dev):
 
 
 def phase_glv(dev, records: dict) -> None:
-    """K8 against its plain version on the card, bit for bit, in each layout
+    """K8 against its plain version on the card, bit for bit, in each form
     at every size of GLV_SIZES (each set headed by glv_edges' edge points and
-    scalars); K8 against K5 in affine form on the largest set."""
+    scalars) and on points of order 3; K8 against K5 in affine form on the
+    largest set."""
     import torch
-    from zkdl_tpu_torch.curve import convert, g1
+    from zkdl_tpu_torch.curve import convert, g1, host_g1
+    from zkdl_tpu_torch.field import fp
 
     pts, sc = glv_edges(dev)
     want = g1.scalar_mul_glv_plain(pts, sc)
-    for form in g1.SCALAR_MUL_FORMS:
+    for form in glv_forms():
         for m in GLV_SIZES:
             idx = torch.arange(m, device=dev)
             same_points(f"g1_scalar_mul_glv ({form}) n={m}", g1.scalar_mul_glv(_points(pts, idx), sc[:m], form),
                         _points(want, idx))
     if convert.affine_from_device(g1.scalar_mul_glv(pts, sc)) != convert.affine_from_device(g1.scalar_mul(pts, sc)):
         raise AssertionError("g1_scalar_mul_glv and g1_scalar_mul disagree in affine form")
-    log(f"[kernels] g1_scalar_mul_glv bit-equal to plain in each layout ({', '.join(g1.SCALAR_MUL_FORMS)}) at n = "
+    # points off the order-r subgroup, where K8 builds phi(P)'s table by adds
+    # rather than from P's: (0, +-2) has order 3 (its table reaches O at t[3])
+    off = convert.jac_to_device([host_g1.JacPoint(0, y, 1) for y in (2, fp.P_INT - 2) for _ in range(8)], dev)
+    osc = sc[:16].contiguous()
+    owant = g1.scalar_mul_glv_plain(off, osc)
+    for form in glv_forms():
+        same_points(f"g1_scalar_mul_glv ({form}) on points of order 3", g1.scalar_mul_glv(off, osc, form), owant)
+    log(f"[kernels] g1_scalar_mul_glv bit-equal to plain in each form ({', '.join(glv_forms())}) at n = "
         f"{', '.join(map(str, GLV_SIZES))}, each set headed by the scalars 0, 1, lambda-1, lambda, lambda+1 and "
-        "r-1 on G, a random point, O and (r^2, -r^3, 0); equal to g1_scalar_mul in affine form")
+        "r-1 on G, a random point, O and (r^2, -r^3, 0), and on points of order 3 (0, +-2); equal to "
+        "g1_scalar_mul in affine form")
     records.setdefault("_g1_scalar_mul_glv_shapes", {})
 
 
 def time_glv(records: dict, label: str, pts, scal) -> dict:
     """K8 on (pts, scal) held bit for bit against scalar_mul_glv_plain on the
-    card in every layout and against K5 in affine form, then timed beside
+    card in every form and against K5 in affine form, then timed beside
     K5 on the same inputs and beside its bound; kept in records' K8 shapes."""
     from zkdl_tpu_torch.curve import convert, g1
 
     want, pms = plain_once(lambda: g1.scalar_mul_glv_plain(pts, scal))
-    err = max(point_err(g1.scalar_mul_glv(pts, scal, form), want) for form in g1.SCALAR_MUL_FORMS)
+    err = max(point_err(g1.scalar_mul_glv(pts, scal, form), want) for form in glv_forms())
     if err:
         raise AssertionError(f"g1_scalar_mul_glv differs from plain at {label}: {err}")
     if convert.affine_from_device(want) != convert.affine_from_device(g1.scalar_mul(pts, scal)):
         raise AssertionError(f"g1_scalar_mul_glv and g1_scalar_mul disagree in affine form at {label}")
-    ms = {form: cuda_ms(lambda f=form: g1.scalar_mul_glv(pts, scal, f), 10) for form in g1.SCALAR_MUL_FORMS}
+    ms = {form: cuda_ms(lambda f=form: g1.scalar_mul_glv(pts, scal, f), 10) for form in glv_forms()}
     k5 = cuda_ms(lambda: g1.scalar_mul(pts, scal), 10)
     bms, by = glv_bound(pts, scal)
     k5_bms, _ = var_bound(pts, scal)
-    dbl, adds, phi = glv_work(pts, scal)
+    dbl, adds, muls = glv_work(pts, scal)
     rec = records.setdefault("_g1_scalar_mul_glv_shapes", {})[label] = {
         "points": pts.x.shape[0], "ms": ms["auto"], **{f"ms_{f}": t for f, t in ms.items() if f != "auto"},
         "plain_ms": pms, "bound_ms": bms, "bound_by": by, "max_abs_err": err, "k5_ms": k5, "k5_bound_ms": k5_bms,
-        "doubles": dbl, "adds": adds}
-    log(f"[kernels] g1_scalar_mul_glv at {label}: bit-equal to plain in every layout, equal to g1_scalar_mul in "
-        f"affine form; {ms['auto']:.4f} ms (layouts: {', '.join(f'{f} {t:.4f}' for f, t in ms.items() if f != 'auto')};"
-        f" plain {pms:.1f} ms, bound {bms:.6f} ms by {by} from {dbl} doubles and {adds} adds, "
+        "doubles": dbl, "adds": adds, "fp_products": muls}
+    log(f"[kernels] g1_scalar_mul_glv at {label}: bit-equal to plain in every form, equal to g1_scalar_mul in "
+        f"affine form; {ms['auto']:.4f} ms (forms: {', '.join(f'{f} {t:.4f}' for f, t in ms.items() if f != 'auto')};"
+        f" plain {pms:.1f} ms, bound {bms:.6f} ms by {by} from {dbl} doubles, {adds} adds and {muls} Fp products, "
         f"{100 * bms / ms['auto']:.2f}% of it); g1_scalar_mul on the same {k5:.4f} ms (bound {k5_bms:.6f})")
     return rec
 
 
-GLV_SWEEP = (256, 1024, 2048, 4096, 8192, 12288, 18432)  # --glv's launch sizes for K8's layout crossovers
+GLV_SWEEP = (256, 1024, 2048, 4096, 5120, 6144, 8192, 12288, 18432)  # --glv's launch sizes for K8's crossover
 
 
-def glv_layout_sweep(dev) -> dict:
-    """K8 in each layout at each size of GLV_SWEEP (points from K4, random
-    scalars below r), every layout's output equal to the others', timed
-    over 5 launches: where each layout is fastest (GLV_QUAD_FROM,
-    GLV_SOLO_FROM in csrc/g1_glv.cu)."""
+def glv_form_sweep(dev) -> dict:
+    """K8 in each form at each size of GLV_SWEEP (points from K4, random
+    scalars below r), every form's output equal to the others', timed over
+    5 launches: where each form is fastest (auto's thresholds in
+    csrc/g1_glv.cu)."""
     import torch
     from zkdl_tpu_torch.curve import g1
     from zkdl_tpu_torch.field import fr
@@ -798,10 +889,10 @@ def glv_layout_sweep(dev) -> dict:
     for n in GLV_SWEEP:
         pts, sc = g1.G1Jac(*(c[:n] for c in allp)), alls[:n].contiguous()
         ref = torch.cat(list(g1.scalar_mul_glv(pts, sc)))
-        for form in g1.SCALAR_MUL_FORMS:
+        for form in glv_forms():
             if not torch.equal(torch.cat(list(g1.scalar_mul_glv(pts, sc, form))), ref):
-                raise AssertionError(f"g1_scalar_mul_glv's layouts disagree at {n} points")
-        out[n] = {form: cuda_ms(lambda f=form: g1.scalar_mul_glv(pts, sc, f), 5) for form in g1.SCALAR_MUL_FORMS}
+                raise AssertionError(f"g1_scalar_mul_glv's forms disagree at {n} points")
+        out[n] = {form: cuda_ms(lambda f=form: g1.scalar_mul_glv(pts, sc, f), 5) for form in glv_forms()}
         log(f"[glv] {n} points: " + ", ".join(f"{f} {t:.4f} ms" for f, t in out[n].items()))
     return out
 
@@ -831,6 +922,42 @@ def glv_time_sets(dev) -> dict:
         f"the blinded tier's H^b shape ({BLIND_ROWS} rows, random blinders)":
             (g1.G1Jac(*(c.expand(BLIND_ROWS, 12) for c in H)), fr_ops.random_fr(prng.PRNGKey(7), BLIND_ROWS, dev)),
     }
+
+
+def phase_glv_times(dev, launches_file: str | None = None) -> dict:
+    """K8 alone on glv_time_sets' inputs, in each form of this checkout
+    (CUDA events, 10 launches each), every form's output equal to auto's,
+    with the SHA-256 of auto's output limbs (equal across checkouts where
+    K8's bits are); and, given the file of one committed verify's K8
+    launches that the full run's --save-k8-launches writes, those launches
+    replayed back to back (auto, 10 times). Only APIs that every version of
+    the port since K8 has, so that two checkouts can be timed in one call."""
+    import hashlib
+
+    import torch
+    from zkdl_tpu_torch.curve import g1
+
+    out = {}
+    if launches_file:
+        launches = [(g1.G1Jac(*(c.to(dev) for c in p)), s.to(dev)) for p, s in torch.load(launches_file)]
+        outs = [torch.cat(list(g1.scalar_mul_glv(p, s))) for p, s in launches]
+        ms = cuda_ms(lambda: [g1.scalar_mul_glv(p, s) for p, s in launches], 10)
+        digest = hashlib.sha256(b"".join(o.cpu().numpy().tobytes() for o in outs)).hexdigest()
+        out["the committed verify's K8 launches"] = {
+            "auto": ms, "points": [p.x.shape[0] for p, _ in launches], "sha256": digest}
+        log(f"[glv-times] one committed verify's {len(launches)} K8 launches "
+            f"({', '.join(str(p.x.shape[0]) for p, _ in launches)} points): {ms:.4f} ms; output sha256 {digest[:16]}")
+    for label, (pts, scal) in glv_time_sets(dev).items():
+        ref = torch.cat(list(g1.scalar_mul_glv(pts, scal)))
+        for form in glv_forms():
+            if not torch.equal(torch.cat(list(g1.scalar_mul_glv(pts, scal, form))), ref):
+                raise AssertionError(f"g1_scalar_mul_glv's forms disagree at {label}")
+        rec = out[label] = {form: cuda_ms(lambda f=form: g1.scalar_mul_glv(pts, scal, f), 10)
+                            for form in glv_forms()}
+        rec["sha256"] = hashlib.sha256(ref.cpu().numpy().tobytes()).hexdigest()
+        log(f"[glv-times] {label}: " + ", ".join(f"{f} {t:.4f} ms" for f, t in rec.items() if f != "sha256") +
+            f"; output sha256 {rec['sha256'][:16]}")
+    return out
 
 
 def plain_once(fn):
@@ -1281,12 +1408,13 @@ def lane_use(generic) -> tuple[float, float]:
     return total / thread_lanes, total / list_lanes
 
 
-def profile_committed(res: dict, records: dict) -> None:
+def profile_committed(res: dict, records: dict, save_k8: str | None = None) -> None:
     """K5's and K8's device time in one committed verify and K6's in one
     committed prove (torch.profiler, summed over the kernels' launches),
-    beside the sums of the launches' bounds (var_bound, glv_bound,
-    add_bound, add_bits_bound on each launch's own inputs, recorded while
-    it runs)."""
+    beside the sums of the launches' bounds (var_bound, add_bound,
+    add_bits_bound on each launch's own inputs, recorded while it runs;
+    glv_bound on K8's, after the trace, as it runs plain adds on the card).
+    save_k8: a file for the verify's K8 launches (--glv-times replays it)."""
     import torch
     from zkdl_tpu_torch.curve import g1
     from zkdl_tpu_torch.models import mlp
@@ -1296,6 +1424,7 @@ def profile_committed(res: dict, records: dict) -> None:
 
     bounds = {"K5 g1_scalar_mul": 0.0, "K6 g1_add": 0.0, "K8 g1_scalar_mul_glv": 0.0}
     smul, add_, bits_, glv = g1.scalar_mul, g1._add, g1.add_bits, g1.scalar_mul_glv
+    k8_inputs = []  # the run's K8 launches, for glv_bound and --glv-times
 
     def scalar_mul(p, scal, form="auto"):
         flat = g1.G1Jac(*(c.reshape(-1, 12) for c in p))
@@ -1304,7 +1433,7 @@ def profile_committed(res: dict, records: dict) -> None:
 
     def scalar_mul_glv(p, scal, form="auto"):
         flat = g1.G1Jac(*(c.reshape(-1, 12) for c in p))
-        bounds["K8 g1_scalar_mul_glv"] += glv_bound(flat, scal.reshape(-1, 8))[0]
+        k8_inputs.append(([c.clone() for c in flat], scal.reshape(-1, 8).clone()))
         return glv(p, scal, form)
 
     def _add(p, q, neg_q):
@@ -1323,13 +1452,18 @@ def profile_committed(res: dict, records: dict) -> None:
                          ("prove", lambda: mlp.prove_timed(model, X, res["batch"], commit_aux=True))):
             for k in bounds:
                 bounds[k] = 0.0
+            k8_inputs.clear()
             torch.cuda.synchronize()
             with profiling.trace() as prof:
                 fn()
                 torch.cuda.synchronize()
             groups, _, _ = device_time(prof)
+            bounds["K8 g1_scalar_mul_glv"] = sum(glv_bound(g1.G1Jac(*p), sc)[0] for p, sc in k8_inputs)
             out[what] = {k: {"device_ms": 1e3 * groups.get(k, [0.0, 0])[0], "launches": groups.get(k, [0.0, 0])[1],
                              "bound_ms": bounds[k]} for k in bounds}
+            if what == "verify" and save_k8:
+                torch.save([([c.cpu() for c in p], sc.cpu()) for p, sc in k8_inputs], save_k8)
+                log(f"[committed] the verify's {len(k8_inputs)} K8 launches' inputs saved to {save_k8}")
     finally:
         g1.scalar_mul, g1._add, g1.add_bits, g1.scalar_mul_glv = smul, add_, bits_, glv
     for what, ks in out.items():
@@ -1440,7 +1574,7 @@ def count_verify_reveals(model, proof, X, Y) -> tuple[dict, int]:
     return {k: v - before[k] for k, v in bench.launch_counts().items()}, batches[0]
 
 
-def phase_committed(records: dict, ordinary: dict, pairs: int = 3) -> dict:
+def phase_committed(records: dict, ordinary: dict, pairs: int = 3, save_k8: str | None = None) -> dict:
     """The committed-aux tier at zkdl256 (BENCH_CONFIG=zkdl256_committed
     through bench.run: phase 4's model, built again from PRNGKey(0), full
     width and depth): warm and steady grouped proves, the proof's size, the
@@ -1485,7 +1619,7 @@ def phase_committed(records: dict, ordinary: dict, pairs: int = 3) -> dict:
     records["_committed_verify_k8"] = {"k8": k8, "k5": k5, "batches": batches}
     time_verify_scalar_muls(res, records)
     time_commit_levels(res, records)
-    profile_committed(res, records)
+    profile_committed(res, records, save_k8)
     for k in g1.KERNELS[1:]:
         records[k.name]["launches"] = launches[k.name]
 
@@ -2359,32 +2493,40 @@ def main() -> int:
         return 2
     t0 = time.perf_counter()
     records: dict = {}
-    times_only = sys.argv[1:] in (["--comb"], ["--var-times"], ["--k7-times"])
-    phase_build(host_library=not times_only)
+    args, k8_file = sys.argv[1:], None  # k8_file: one committed verify's K8 launches
+    if len(args) == 2 and args[0] == "--save-k8-launches":  # the full run, writing k8_file
+        args, k8_file = [], args[1]
+    elif len(args) == 2 and args[0] == "--glv-times":  # and replaying it
+        args, k8_file = args[:1], args[1]
+    times_only = args in (["--comb"], ["--var-times"], ["--k7-times"], ["--glv-times"])
+    phase_build(host_library=not times_only, check_spills=not times_only)
     dev = torch.device("cuda")
-    if sys.argv[1:] == ["--comb"]:
+    if args == ["--comb"]:
         print(json.dumps({"g1_comb_shapes": phase_comb_times(dev, with_plain=False)}), flush=True)
         return 0
-    if sys.argv[1:] == ["--var-times"]:
+    if args == ["--var-times"]:
         times = {"g1_comb_shapes": phase_comb_times(dev, with_plain=False), **phase_var_times(dev)}
         print(json.dumps(times), flush=True)
         return 0
-    if sys.argv[1:] == ["--k7-times"]:
+    if args == ["--k7-times"]:
         print(json.dumps({"fr_batch_inverse_shapes": phase_k7_times(dev)}), flush=True)
         return 0
-    if sys.argv[1:] == ["--attention"]:
+    if args == ["--glv-times"]:
+        print(json.dumps({"g1_scalar_mul_glv_times": phase_glv_times(dev, k8_file)}), flush=True)
+        return 0
+    if args == ["--attention"]:
         phase_k7(records)
         phase_attention(records)
         print(json.dumps({"attention": records["_attention"]}), flush=True)
         return 0
-    if sys.argv[1:] == ["--glv"]:
+    if args == ["--glv"]:
         phase_glv(dev, records)
         for label, (pts, scal) in glv_time_sets(dev).items():
             time_glv(records, label, pts, scal)
         print(json.dumps({"g1_scalar_mul_glv_shapes": records["_g1_scalar_mul_glv_shapes"],
-                          "g1_scalar_mul_glv_layouts": glv_layout_sweep(dev)}), flush=True)
+                          "g1_scalar_mul_glv_forms": glv_form_sweep(dev)}), flush=True)
         return 0
-    if sys.argv[1:] == ["--var"]:
+    if args == ["--var"]:
         phase_var(dev, records)
         print(json.dumps({"g1_scalar_mul_shapes": records["_g1_scalar_mul_shapes"], **phase_var_times(dev)}),
               flush=True)
@@ -2398,7 +2540,7 @@ def main() -> int:
     log(f"[time] phase 3: {time.perf_counter() - t0:.1f}s")
     res = phase_zkdl256(records)
     log(f"[time] phase 4: {time.perf_counter() - t0:.1f}s")
-    phase_committed(records, res)
+    phase_committed(records, res, save_k8=k8_file)
     log(f"[time] phase 6 (committed): {time.perf_counter() - t0:.1f}s")
     phase_blinded(res, records)
     phase_checkpoint(res, records)

@@ -36,7 +36,7 @@ P = fp.P_INT
 R = fr.P_INT
 M32 = (1 << 32) - 1
 SRC = (build.CSRC / "g1_var.cu").read_text()
-VAR_SRC = (build.CSRC / "g1_var.cuh").read_text()  # Var, the formulas K5 and K8 share
+VAR_SRC = (build.CSRC / "g1_var.cuh").read_text()  # Var, K5's formulas
 TEAM_SRC = (build.CSRC / "fp_team.cuh").read_text()
 COFACTOR = 0x396C8C005555E1568C00AAAB0000AAAB
 

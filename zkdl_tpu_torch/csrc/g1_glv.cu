@@ -14,8 +14,10 @@
 // The results are fixed down to the limb (the port's tests hold them
 // against the JAX function's), so every formula is g1.py's (add-2007-bl and
 // dbl-2009-l with its selects: p == O gives q's limbs, q == O p's, equal
-// points double(p), a z = 0 point doubles to itself), over canonical
-// Montgomery Fp values (csrc/g1_var.cuh's Var, as K5).
+// points double(p), a z = 0 point doubles to itself), value for value as
+// K5's csrc/g1_var.cuh:Var. Every value a formula returns, stores or
+// tests is canonical, so how each is computed is free: inside a formula
+// the values are lazy (csrc/fp_chain.cuh: products and sums below 2p).
 //
 // Decomposition: in the kernel, by exact integer division. For s < r the
 // pair with 0 <= s1 < lambda is unique, so any exact division gives the
@@ -31,48 +33,56 @@
 // limbs), and the top window's doubles (out is still (0, 0, 0) for every
 // point of the warp).
 //
-// Tables: two of 16 entries of (x, y, z), 1152 words (4608 bytes) a point,
-// too many for registers at any layout. They go to a scratch vector in
-// device memory that the wrapper allocates, one row a point: at the
-// verify's 18,432 points 85 MB, beyond L2's 50 MB, but each window reads
-// two entries (288 bytes) against ~100 dependent Fp products, so the
-// traffic is ~0.2 GB a launch (0.06 ms at 3.35 TB/s), far under the
-// products' time; shared memory would cap the layouts at a few points a
-// block. Team 0's lanes of a point write its tables; after a __syncwarp
-// every lane reads them with plain (coherent) loads.
-//
-// Layouts: Team, Quad and Solo as K5 (csrc/fp_team.cuh), one, four or
-// sixteen points a warp, picked by the launch's size (GLV_QUAD_FROM,
-// GLV_SOLO_FROM) or forced; every layout gives the same bits.
-//
 // What bounds it on an H100: the 32-bit multiply-adds of its Fp products,
 // counted at the JAX formulas' cost (a generic add 11 products and 5
-// squarings, a double 2 and 5): per point with s < r, ~124 doubles and
-// ~90 generic adds (28 for the tables, two a window), and one product for
-// phi, about 1.2M multiply-adds against double-and-add's ~2M (K5). At the
-// verify's 18,432 points that is ~1.4 ms at 16.7e12/s; chip_smoke.py's
-// glv_bound counts the exact doubles and adds of a launch's data.
+// squarings, a double 2 and 5): per point, four doubles a window below its
+// highest nonzero one and a generic add a nonzero digit after its first,
+// t1's double and 13 adds, and 15 products (phi and t2); chip_smoke.py's
+// glv_bound counts them on a launch's data. In practice the chain: a
+// product's carry chains run one after another (PTX has one carry flag,
+// so two products of one lane do not overlap), and a warp issues from one
+// of an SM's four schedulers, so a launch of fewer warps than four an SM
+// is bound by one warp's chain of product rounds, and a larger one by the
+// schedulers' issue.
+//
+// The design:
+//   - The product (fp_chain.cuh): CIOS in PTX carry chains, even and odd
+//     word pairs in two accumulators, no carry words past p's spare bits,
+//     no final subtraction (values stay below 2p inside a formula; each
+//     formula reduces what it returns, and add-2007-bl what it compares).
+//   - Two layouts (fp_chain.cuh), each every value of a point on each of its
+//     lanes: Four, four lanes a point, a round of up to four independent
+//     products one a lane (double in 3 rounds, add in 5; eight points a
+//     warp), for launches of up to one warp a scheduler, where the chain
+//     bounds the time; Pair, two lanes a point, two products a round
+//     (double in 4, add in 8; sixteen points a warp, fewer instructions a
+//     point), for larger ones. zk_g1_glv picks by the launch and the
+//     card's SM count (glv_form).
+//   - The tables, 1152 words (4608 bytes) a point: t1 is built in the
+//     point's arithmetic, and t2 follows from it by one product an entry
+//     (the identity that g1_glv_kernel states), spread over the point's
+//     lanes; where it does not hold (the identity, points off the subgroup)
+//     t2 is built by adds. Four keeps the tables in dynamic shared memory
+//     (eight points, 36,864 bytes a one-warp block); Pair writes them to a
+//     device scratch the wrapper allocates and fetches each window's two
+//     entries (288 bytes a point) into shared memory with cp.async while
+//     the window before runs (two buffers), so no table read stands in the
+//     chain. The formulas read the second operand's coordinates from shared
+//     memory where they use them, and every select is a lop3 in asm
+//     (fp_chain.cuh:pick), which keeps every value in registers: no local
+//     memory and no spills (ptxas, PERF.md).
+//   - Each layout has its own __launch_bounds__ (GlvLaunch).
 //
 // C interface (loaded with ctypes): zk_g1_glv launches on the given stream
-// and device and returns cudaGetLastError().
+// and device and returns cudaGetLastError(); zk_g1_glv_scratch_words gives
+// the scratch a launch needs.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
-#include "field.cuh"
-#include "fp_team.cuh"
-#include "g1_var.cuh"
+#include "fp_chain.cuh"
 
 namespace {
-
-// K8's layout by the launch (the crossovers measured in PERF.md, PR 11):
-// one point a warp is the shortest chain (best at 256 points); four points
-// a warp the fewer instructions (best from 1024); sixteen points a warp the
-// fewest (best from 8192)
-constexpr int64_t GLV_QUAD_FROM = 1024;
-constexpr int64_t GLV_SOLO_FROM = 8192;
-constexpr int GLV_ENTRIES = 16;
-constexpr int64_t TABLE_WORDS = 2 * GLV_ENTRIES * 3 * NL;  // a point's scratch
 
 // lambda = X^2 - 1 (128 bits), M = floor(2^256 / lambda) (129 bits), and
 // beta in Montgomery form (beta R mod p), little-endian words
@@ -84,7 +94,7 @@ __device__ __forceinline__ uint32_t glv_m(int i) {
   constexpr uint32_t M[5] = {0xf6cfee30u, 0x63f6e522u, 0xe01faaddu, 0x7c6becf1u, 0x00000001u};
   return M[i];
 }
-__device__ uint32_t GLV_BETA_MONT[NL] = {0x8671f071u, 0xcd03c9e4u, 0x1fcda5d2u, 0x5dab2246u,
+__device__ uint32_t GLV_BETA_MONT[NW] = {0x8671f071u, 0xcd03c9e4u, 0x1fcda5d2u, 0x5dab2246u,
                                          0xd3851b95u, 0x587042afu, 0x01bacb9eu, 0x8eb60ebeu,
                                          0x83d050d2u, 0x03f97d6eu, 0x54638741u, 0x18f02065u};
 
@@ -156,14 +166,14 @@ __device__ __forceinline__ void glv_split(const uint32_t (&s)[8], uint32_t (&s1)
   for (int i = 0; i < 5; ++i) s2[i] = q[i];
 }
 
-// 4-bit window w of a little-endian word vector, without a dynamically
-// indexed array (which would go to local memory)
-template <int N>
-__device__ __forceinline__ int window(const uint32_t (&v)[N], int w) {
-  uint32_t word = 0;
-#pragma unroll
-  for (int i = 0; i < N; ++i) word = (w >> 3) == i ? v[i] : word;
-  return (int)((word >> (4 * (w & 7))) & 15u);
+// The split scalar of each point of a block, in shared memory for the walk
+// (registers are the scarce resource): s1 in words 0..4 (word 4 is 0), s2 in
+// words 5..9.
+constexpr int SPLIT_WORDS = 10;
+
+// 4-bit window w of s1 (t = 0) or s2 (t = 1), for w < 33
+__device__ __forceinline__ int window(const uint32_t* split, int t, int w) {
+  return (int)((split[t * 5 + (w >> 3)] >> (4 * (w & 7))) & 15u);
 }
 
 // the highest nonzero window, -1 for 0
@@ -176,125 +186,454 @@ __device__ __forceinline__ int top_window(const uint32_t (&v)[N]) {
   return top;
 }
 
+constexpr int GLV_ENTRIES = 16;
+constexpr int ENTRY_WORDS = 3 * NW;                                  // (x, y, z)
+constexpr int64_t TABLE_WORDS = 2 * GLV_ENTRIES * ENTRY_WORDS;       // a point's two tables
+constexpr int ENTRY_VECS = ENTRY_WORDS / 4;                          // 16-byte pieces of an entry
+
+struct Pt {
+  Fq x, y, z;
+};
+
+// The formulas' second operand, a table entry in shared memory: each
+// coordinate read where it is used, so it takes no registers across a
+// formula.
+struct Shared {
+  const uint32_t* e;  // (x, y, z) in shared memory, 16-byte aligned
+  __device__ __forceinline__ Fq word(int c) const {
+    const uint32_t a = (uint32_t)__cvta_generic_to_shared(e + c * NW);
+    Fq f;
+#pragma unroll
+    for (int q = 0; q < 3; ++q)
+      asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];"
+                   : "=r"(f.w[4 * q]), "=r"(f.w[4 * q + 1]), "=r"(f.w[4 * q + 2]), "=r"(f.w[4 * q + 3])
+                   : "r"(a + 16 * q));
+    return f;
+  }
+  __device__ __forceinline__ Fq x() const { return word(0); }
+  __device__ __forceinline__ Fq y() const { return word(1); }
+  __device__ __forceinline__ Fq z() const { return word(2); }
+  __device__ __forceinline__ Pt pt() const { return {x(), y(), z()}; }
+};
+
+// g1.py's double and add over a layout T (fp_chain.cuh), value for value as
+// g1.py (and K5's csrc/g1_var.cuh:Var). Canonical coordinates in and out;
+// inside, every product is below 2p and every sum and difference in
+// [0, 2p) (fp_chain.cuh); what add-2007-bl compares is reduced first.
+
+// dbl-2009-l (g1.py:double :90-103) of a point that is not the identity,
+// with two products a round (Pair): 4 rounds.
+template <class T>
+__device__ __forceinline__ Pt dbl_gen(const T& tm, const Pt& P) {
+  Fq A, B, C, F, XB2, YZ;
+  tm.mul2(P.x, P.x, P.y, P.y, A, B);
+  const Fq E = tm.add(tm.dbl(A), A);
+  const Fq XB = tm.add(P.x, B);
+  tm.mul2(B, B, E, E, C, F);
+  tm.mul2(XB, XB, P.y, P.z, XB2, YZ);
+  const Fq D = tm.dbl(tm.sub(tm.sub(XB2, A), C));
+  const Fq X3 = tm.sub(tm.sub(F, D), D);
+  const Fq DE = tm.mul(tm.sub(D, X3), E);
+  return {tm.canon(X3), tm.canon(tm.sub(DE, tm.dbl(tm.dbl(tm.dbl(C))))), tm.canon(tm.dbl(YZ))};
+}
+
+// The same with up to four products a round (Four): 3 rounds.
+__device__ __forceinline__ Pt dbl_gen(const Four& tm, const Pt& P) {
+  Fq A, B, YZ, C, F, XB2;
+  tm.mul3(P.x, P.x, P.y, P.y, P.y, P.z, A, B, YZ);
+  const Fq E = tm.add(tm.dbl(A), A);
+  const Fq XB = tm.add(P.x, B);
+  tm.mul3(B, B, E, E, XB, XB, C, F, XB2);
+  const Fq D = tm.dbl(tm.sub(tm.sub(XB2, A), C));
+  const Fq X3 = tm.sub(tm.sub(F, D), D);
+  const Fq DE = tm.mul(tm.sub(D, X3), E);
+  return {tm.canon(X3), tm.canon(tm.sub(DE, tm.dbl(tm.dbl(tm.dbl(C))))), tm.canon(tm.dbl(YZ))};
+}
+
+// add-2007-bl (g1.py:add :106-132) of P1 and P2, neither the identity,
+// with two products a round (Pair): 16 products in 8 rounds, each
+// round's pair independent; same: equal points (then add gives
+// double(P1), which the caller runs).
+template <class T, class E>
+__device__ __forceinline__ void add_gen(const T& tm, const Pt& P1, const E& P2, Pt& sum, bool& same) {
+  Fq Z1Z1, Z2Z2, U1, U2, I, S1a, S2a, J, V, S1, S2, ZZ, RR, SJ, VR, Z3;
+  tm.mul2(P1.z, P1.z, P2.z(), P2.z(), Z1Z1, Z2Z2);
+  tm.mul2(P1.x, Z2Z2, P2.x(), Z1Z1, U1, U2);
+  const Fq H = tm.sub(U2, U1);
+  const Fq H2 = tm.dbl(H);
+  tm.mul2(H2, H2, P1.y, P2.z(), I, S1a);
+  tm.mul2(P2.y(), P1.z, H, I, S2a, J);
+  tm.mul2(U1, I, S1a, Z2Z2, V, S1);
+  const Fq ZS = tm.add(P1.z, P2.z());
+  tm.mul2(S2a, Z1Z1, ZS, ZS, S2, ZZ);
+  same = tm.eq(tm.canon(U1), tm.canon(U2)) & tm.eq(tm.canon(S1), tm.canon(S2));  // no short circuit
+  const Fq R = tm.dbl(tm.sub(S2, S1));
+  tm.mul2(R, R, S1, J, RR, SJ);
+  const Fq X3 = tm.sub(tm.sub(RR, J), tm.dbl(V));
+  const Fq VX = tm.sub(V, X3);
+  const Fq T2 = tm.sub(tm.sub(ZZ, Z1Z1), Z2Z2);
+  tm.mul2(VX, R, T2, H, VR, Z3);
+  sum = {tm.canon(X3), tm.canon(tm.sub(VR, tm.dbl(SJ))), tm.canon(Z3)};
+}
+
+// The same with up to four products a round (Four): 16 products in 5
+// rounds, each round's products independent.
+template <class E>
+__device__ __forceinline__ void add_gen(const Four& tm, const Pt& P1, const E& P2, Pt& sum, bool& same) {
+  Fq Z1Z1, Z2Z2, S1a, S2a, U1, U2, S1, S2, I, RR, ZZ, J, V, Z3, VR, SJ;
+  tm.mul4(P1.z, P1.z, P2.z(), P2.z(), P1.y, P2.z(), P2.y(), P1.z, Z1Z1, Z2Z2, S1a, S2a);
+  tm.mul4(P1.x, Z2Z2, P2.x(), Z1Z1, S1a, Z2Z2, S2a, Z1Z1, U1, U2, S1, S2);
+  same = tm.eq(tm.canon(U1), tm.canon(U2)) & tm.eq(tm.canon(S1), tm.canon(S2));  // no short circuit
+  const Fq H = tm.sub(U2, U1);
+  const Fq H2 = tm.dbl(H);
+  const Fq R = tm.dbl(tm.sub(S2, S1));
+  const Fq ZS = tm.add(P1.z, P2.z());
+  tm.mul3(H2, H2, R, R, ZS, ZS, I, RR, ZZ);
+  const Fq T2 = tm.sub(tm.sub(ZZ, Z1Z1), Z2Z2);
+  tm.mul3(H, I, U1, I, T2, H, J, V, Z3);
+  const Fq X3 = tm.sub(tm.sub(RR, J), tm.dbl(V));
+  const Fq VX = tm.sub(V, X3);
+  tm.mul2(VX, R, S1, J, VR, SJ);
+  sum = {tm.canon(X3), tm.canon(tm.sub(VR, tm.dbl(SJ))), tm.canon(Z3)};
+}
+
 template <class T>
 struct Glv {
-  using V = Var<T>;
-  using Pt = typename V::Pt;
+  __device__ __forceinline__ static Pt sel(bool c, const Pt& a, const Pt& b) {
+    return {T::sel(c, a.x, b.x), T::sel(c, a.y, b.y), T::sel(c, a.z, b.z)};
+  }
 
   // g1.py:double: a z = 0 point keeps its limbs
-  __device__ static Pt dbl(const T& tm, const Pt& P) { return V::sel(tm.zero(P.z), P, V::dbl(tm, P)); }
+  __device__ __forceinline__ static Pt dbl(const T& tm, const Pt& P) { return sel(T::zero(P.z), P, dbl_gen(tm, P)); }
 
-  // g1.py:add with its selects: P == O -> Q, Q == O -> P, equal -> double(P)
-  __device__ static Pt add(const T& tm, const Pt& P, const Pt& Q) {
-    const bool pO = tm.zero(P.z), qO = tm.zero(Q.z);
+  // g1.py:add with its selects: P == O -> Q, Q == O -> P, equal -> double(P);
+  // generic: the result is add-2007-bl's (none of the three)
+  template <class E>
+  __device__ __forceinline__ static Pt add(const T& tm, const Pt& P, const E& Q, bool& generic) {
+    const bool pO = T::zero(P.z), qO = T::zero(Q.z());
     const bool gen = !pO && !qO;
     Pt sum = P;
-    if (T::ALWAYS_ADD || __any_sync(FULL, gen)) {
+    generic = false;
+    if (__any_sync(FULL, gen)) {
       bool same;
-      V::add(tm, P, Q, sum, same);
-      if (__any_sync(FULL, gen && same)) sum = V::sel(same, V::dbl(tm, P), sum);  // equal points: rare
+      add_gen(tm, P, Q, sum, same);
+      generic = gen && !same;
+      if (__any_sync(FULL, gen && same)) sum = sel(same, dbl_gen(tm, P), sum);  // equal points: rare
     }
-    return V::sel(pO, Q, V::sel(qO, P, sum));
+    sum = sel(qO, P, sum);
+    if (__any_sync(FULL, pO)) sum = sel(pO, Q.pt(), sum);  // (Q read only here: P is dead by now)
+    return sum;
   }
-
-  __device__ static void put(const T& tm, uint32_t* table, int64_t at, const Pt& e) {
-    tm.store(table, at, e.x);
-    tm.store(table, at + NL, e.y);
-    tm.store(table, at + 2 * NL, e.z);
-  }
-  __device__ static Pt get(const T& tm, const uint32_t* table, int64_t at) {
-    return {tm.load_rw(table, at), tm.load_rw(table, at + NL), tm.load_rw(table, at + 2 * NL)};
+  template <class E>
+  __device__ __forceinline__ static Pt add(const T& tm, const Pt& P, const E& Q) {
+    bool generic;
+    return add(tm, P, Q, generic);
   }
 };
 
-// out[i] = scalar_i * p[i] by GLV. PTS = 32 / T::POINT_LANES points a warp;
-// the lanes of a warp's points past n mirror point n - 1 and store nothing.
+// --- tables -----------------------------------------------------------------
+
+// word k < 36 of an entry (x, y, z): k constant after unrolling
+__device__ __forceinline__ uint32_t entry_word(const Pt& e, int k) {
+  return k < NW ? e.x.w[k] : k < 2 * NW ? e.y.w[k - NW] : e.z.w[k - 2 * NW];
+}
+
+__device__ __forceinline__ void put_entry(uint32_t* dst, const Pt& e) {
+  uint4* d = reinterpret_cast<uint4*>(dst);
+#pragma unroll
+  for (int q = 0; q < ENTRY_VECS; ++q)
+    d[q] = make_uint4(entry_word(e, 4 * q), entry_word(e, 4 * q + 1), entry_word(e, 4 * q + 2),
+                      entry_word(e, 4 * q + 3));
+}
+
+__device__ __forceinline__ Fq get_fq(const uint32_t* src) {
+  const uint4* s = reinterpret_cast<const uint4*>(src);
+  Fq f;
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    const uint4 v = s[q];
+    f.w[4 * q] = v.x;
+    f.w[4 * q + 1] = v.y;
+    f.w[4 * q + 2] = v.z;
+    f.w[4 * q + 3] = v.w;
+  }
+  return f;
+}
+
+// One table in the layout's arithmetic: entry k at dst + k ENTRY_WORDS:
+// t[0] = (0, 0, 0), t[1] = B, t[k] = add(t[k - 1], t[1]) (g1.py:_mk_table).
+// Every add reads B from stash, a copy in shared memory that the point's
+// lead lane writes. Returns whether every add from t[3] on ran the generic
+// formula.
 template <class T>
-__global__ void __launch_bounds__(Launch<T>::THREADS, Launch<T>::MIN_BLOCKS)
+__device__ __forceinline__ bool build_table(const T& tm, const Pt& B, uint32_t* dst, uint32_t* stash, bool lead,
+                                            bool writer) {
+  if (lead) put_entry(stash, B);
+  if (writer) {
+    put_entry(dst, Pt{});
+    put_entry(dst + ENTRY_WORDS, B);
+  }
+  __syncwarp();
+  Pt e = B;
+  bool all_generic = true;
+#pragma unroll 1
+  for (int k = 2; k < GLV_ENTRIES; ++k) {
+    bool generic;
+    e = Glv<T>::add(tm, e, Shared{stash}, generic);
+    all_generic &= generic || k == 2;
+    if (writer) put_entry(dst + k * ENTRY_WORDS, e);
+  }
+  return all_generic;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"((uint32_t)__cvta_generic_to_shared(smem)),
+               "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+enum Tables { SHARED = 0, FETCHED = 1 };
+
+// Each layout's tables and launch bounds (a block is one warp; registers
+// and shared memory from the ptxas report, PERF.md): Four keeps its eight
+// points' tables in shared memory (36,864 bytes a block, six blocks an SM);
+// Pair fetches its sixteen points' entries from the scratch, eight blocks
+// an SM (255 registers a thread).
+template <class T>
+struct GlvLaunch;
+template <>
+struct GlvLaunch<Four> {
+  static constexpr int TABLES = SHARED, MIN_BLOCKS = 6;
+};
+template <>
+struct GlvLaunch<Pair> {
+  static constexpr int TABLES = FETCHED, MIN_BLOCKS = 8;
+};
+
+// out[i] = scalar_i * p[i] by GLV. A block is one warp of PTS = 32 /
+// T::POINT_LANES points; the lanes of its points past n mirror point n - 1
+// and store nothing. TABLES: SHARED keeps the warp's tables in dynamic
+// shared memory (PTS * 4608 bytes); FETCHED writes them to table (n rows of
+// TABLE_WORDS) and fetches each window's entries into ring ahead of use.
+template <class T, int TABLES = GlvLaunch<T>::TABLES>
+__global__ void __launch_bounds__(32, GlvLaunch<T>::MIN_BLOCKS)
     g1_glv_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict__ py, const uint32_t* __restrict__ pz,
-                  int64_t p_stride, const uint32_t* __restrict__ sc, uint32_t* table,
-                  uint32_t* __restrict__ ox, uint32_t* __restrict__ oy, uint32_t* __restrict__ oz, int64_t n) {
+                  int64_t p_stride, const uint32_t* __restrict__ sc, uint32_t* table, uint32_t* __restrict__ ox,
+                  uint32_t* __restrict__ oy, uint32_t* __restrict__ oz, int64_t n) {
   constexpr int PTS = 32 / T::POINT_LANES;
+  extern __shared__ uint4 tables_smem[];  // SHARED: [PTS][TABLE_WORDS]
+  __shared__ uint32_t splits[PTS][SPLIT_WORDS];
+  // FETCHED: [window parity][PTS][table][entry]
+  __shared__ uint4 ring[TABLES == FETCHED ? 2 * PTS * 2 * ENTRY_VECS : 1];
   using G = Glv<T>;
-  using Pt = typename G::Pt;
-  const int lane = threadIdx.x & 31;
-  const int64_t first = ((int64_t)blockIdx.x * Launch<T>::THREADS + threadIdx.x) / 32 * PTS;
-  if (first >= n) return;  // the whole warp
-  const int64_t i = first + lane / T::POINT_LANES;
+  const int lane = threadIdx.x;
+  const int pt = lane / T::POINT_LANES;
+  const int role = lane % T::POINT_LANES;
+  const int64_t i = (int64_t)blockIdx.x * PTS + pt;
   const bool live = i < n;
   const int64_t src = live ? i : n - 1;
   const T tm(lane);
 
-  uint32_t s[8], s1[4], s2[5];
+  int start;  // the warp's highest nonzero window, -1 for none
+  const uint32_t* const split = splits[pt];
+  {
+    uint32_t s[8], s1[4], s2[5];
 #pragma unroll
-  for (int k = 0; k < 8; ++k) s[k] = __ldg(sc + src * 8 + k);
-  glv_split(s, s1, s2);
-  const int start = __reduce_max_sync(FULL, max(top_window(s1), top_window(s2)) + 1) - 1;  // the warp's
-
-  // the two tables, written by team 0 of each live point
-  const int64_t tb = src * TABLE_WORDS;
-  const bool writer = live && tm.team == 0;
-  const int64_t off = src * p_stride;
-  const Pt P{tm.load(px, off), tm.load(py, off), tm.load(pz, off)};
-#pragma unroll 1
-  for (int t = 0; t < 2; ++t) {
-    Pt B = P;
-    if (t) B.x = tm.mul(P.x, tm.load(GLV_BETA_MONT, 0));  // phi(P)
-    const int64_t at = tb + (int64_t)t * GLV_ENTRIES * 3 * NL;
-    if (writer) {
-      G::put(tm, table, at, Pt{});
-      G::put(tm, table, at + 3 * NL, B);
-    }
-    Pt e = B;
-#pragma unroll 1
-    for (int k = 2; k < GLV_ENTRIES; ++k) {
-      e = G::add(tm, e, B);
-      if (writer) G::put(tm, table, at + (int64_t)k * 3 * NL, e);
+    for (int k = 0; k < 8; ++k) s[k] = __ldg(sc + src * 8 + k);
+    glv_split(s, s1, s2);
+    start = __reduce_max_sync(FULL, max(top_window(s1), top_window(s2)) + 1) - 1;
+    if (role == 0) {
+#pragma unroll
+      for (int k = 0; k < 5; ++k) {
+        splits[pt][k] = k < 4 ? s1[k] : 0u;
+        splits[pt][5 + k] = s2[k];
+      }
     }
   }
+
+  // the tables: this point's at tab (table t, entry k at tab + (t * 16 + k) * 36)
+  uint32_t* tab = TABLES == SHARED ? reinterpret_cast<uint32_t*>(tables_smem) + pt * TABLE_WORDS
+                                   : table + src * TABLE_WORDS;
+  // t1, P's table, in the point's arithmetic (every lane holds it; lane 0
+  // of the point writes it). t2, phi(P)'s, follows from t1 entry by entry,
+  // with phi(P) = (beta x, y, z) and beta^3 = 1. JAX's double of (beta X,
+  // Y, Z) is (beta X3, Y3, Z3) where (X3, Y3, Z3) doubles (X, Y, Z). Its
+  // add-2007-bl of (beta^a X1, Y1, beta^b Z1) and (beta^c X2, Y2, beta^d Z2)
+  // with e = a + 2d = c + 2b mod 3: U1 and U2, so H, carry beta^e; S1, S2,
+  // R, J = H I and V = U1 I carry none, so neither do X3 and Y3; and Z3 =
+  // 2 Z1 Z2 H carries beta^(b + d + e). So t2[2] = (beta X, Y, Z) of t1[2];
+  // t2[3] = t2[2] + phi(P) (a = 1, b = 0, c = 1, d = 0: e = 1) is (X, Y,
+  // beta Z) of t1[3]; and each t2[k] + phi(P) from there (a = 0, b = 1,
+  // c = 1, d = 0: e = 0) is (X, Y, beta Z) of t1[k + 1]. This holds
+  // wherever each of t1's adds from t1[3] on ran the generic formula (always
+  // for a point of the order-r subgroup that is not the identity: kP is
+  // never O or P there). A point of the warp where one did not (the
+  // identity; points off the subgroup) gets t2 the long way.
+  const bool writer = (TABLES == SHARED || live) && role == 0;
+  uint32_t* const tab2 = tab + GLV_ENTRIES * ENTRY_WORDS;
+  // B's copies for the adds: in Four the tables' own t[1]; in Pair the ring,
+  // free until the walk
+  uint32_t* const ring_pt = reinterpret_cast<uint32_t*>(ring + pt * 2 * ENTRY_VECS);
+  uint32_t* const stash1 = TABLES == SHARED ? tab + ENTRY_WORDS : ring_pt;
+  uint32_t* const stash2 = TABLES == SHARED ? tab2 + ENTRY_WORDS : ring_pt + ENTRY_WORDS;
+  // (P lives in stash1 while t1 is built: registers are the scarce resource)
+  bool derive;
+  {
+    const int64_t off = src * p_stride;
+    Pt P;
+#pragma unroll
+    for (int k = 0; k < NW; ++k) {
+      P.x.w[k] = __ldg(px + off + k);
+      P.y.w[k] = __ldg(py + off + k);
+      P.z.w[k] = __ldg(pz + off + k);
+    }
+    derive = build_table(tm, P, tab, stash1, role == 0, writer);
+  }
+  if constexpr (TABLES == FETCHED) __threadfence_block();
   __syncwarp();
+  const Pt P = Shared{stash1}.pt();
+  derive = derive && !T::zero(P.z);
+  Fq beta;
+#pragma unroll
+  for (int k = 0; k < NW; ++k) beta.w[k] = GLV_BETA_MONT[k];
+  const Fq bx = canon(mont_mul(P.x, beta));  // phi(P).x
+  if (writer) {
+    put_entry(tab2, Pt{});
+    put_entry(tab2 + ENTRY_WORDS, Pt{bx, P.y, P.z});
+  }
+#pragma unroll 1
+  for (int k = 2 + role; k < GLV_ENTRIES; k += T::POINT_LANES) {  // a product a lane
+    const uint32_t* e = tab + k * ENTRY_WORDS;
+    const uint32_t two = k == 2 ? FULL : 0u;
+    const Fq x = get_fq(e), z = get_fq(e + 2 * NW);
+    const Fq b = canon(mont_mul(pick(two, x, z), beta));
+    if ((TABLES == SHARED || live) && derive)
+      put_entry(tab2 + k * ENTRY_WORDS, Pt{pick(two, b, x), get_fq(e + NW), pick(two, z, b)});
+  }
+  if (__any_sync(FULL, !derive)) build_table(tm, Pt{bx, P.y, P.z}, tab2, stash2, role == 0, writer && !derive);
+  if constexpr (TABLES == FETCHED) __threadfence_block();
+  __syncwarp();
+
+  // FETCHED (Pair): this lane fetches table `role`'s entry of window w into ring[w & 1]
+  auto fetch = [&](int w) {
+    const uint32_t* g = tab + (role * GLV_ENTRIES + window(split, role, w)) * ENTRY_WORDS;
+    uint4* d = ring + (((w & 1) * PTS + pt) * 2 + role) * ENTRY_VECS;
+#pragma unroll
+    for (int q = 0; q < ENTRY_VECS; ++q) cp_async16(d + q, g + 4 * q);
+  };
+  if constexpr (TABLES == FETCHED) {
+    if (start >= 0) fetch(start);
+    cp_async_commit();
+  }
 
   Pt out{};
 #pragma unroll 1
   for (int w = start; w >= 0; --w) {
+    const uint32_t *e0, *e1;  // the window's entries of t1 and t2
+    if constexpr (TABLES == FETCHED) {
+      __syncwarp();  // every lane is done with ring[(w - 1) & 1]'s last entries
+      if (w > 0) fetch(w - 1);
+      cp_async_commit();
+      cp_async_wait<1>();  // window w's entries are in
+      __syncwarp();        // and the other lane's too
+      e0 = reinterpret_cast<const uint32_t*>(ring + ((w & 1) * PTS + pt) * 2 * ENTRY_VECS);
+      e1 = e0 + ENTRY_WORDS;
+    } else {
+      e0 = tab + window(split, 0, w) * ENTRY_WORDS;
+      e1 = tab + (GLV_ENTRIES + window(split, 1, w)) * ENTRY_WORDS;
+    }
     if (w < start) {
 #pragma unroll 1
       for (int j = 0; j < 4; ++j) out = G::dbl(tm, out);
     }
-    out = G::add(tm, out, G::get(tm, table, tb + (int64_t)window(s1, w) * 3 * NL));
-    out = G::add(tm, out, G::get(tm, table, tb + (int64_t)(GLV_ENTRIES + window(s2, w)) * 3 * NL));
+#pragma unroll 1
+    for (int t = 0; t < 2; ++t) out = G::add(tm, out, Shared{t ? e1 : e0});
   }
-  if (live && tm.team == 0) {
-    tm.store(ox, i * NL, out.x);
-    tm.store(oy, i * NL, out.y);
-    tm.store(oz, i * NL, out.z);
+  if constexpr (TABLES == FETCHED) cp_async_wait<0>();
+  if (live && role == 0) {
+#pragma unroll
+    for (int k = 0; k < NW; ++k) {
+      ox[i * NW + k] = out.x.w[k];
+      oy[i * NW + k] = out.y.w[k];
+      oz[i * NW + k] = out.z.w[k];
+    }
   }
+}
+
+// Run f on `device`, restoring the caller's device; returns the first error.
+template <class F>
+int on_device(int device, F f) {
+  int prev = device;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  err = f();
+  const cudaError_t last = cudaGetLastError();
+  if (err == cudaSuccess) err = last;
+  if (prev != device) cudaSetDevice(prev);
+  return (int)err;
 }
 
 template <class T>
-void launch_glv(const void* px, const void* py, const void* pz, long long p_stride, const void* scalars, void* table,
-                void* ox, void* oy, void* oz, long long n, void* stream) {
-  constexpr long long PER_BLOCK = Launch<T>::THREADS / T::POINT_LANES;  // points a block
-  g1_glv_kernel<T><<<(unsigned)((n + PER_BLOCK - 1) / PER_BLOCK), Launch<T>::THREADS, 0, (cudaStream_t)stream>>>(
+cudaError_t launch_glv(const void* px, const void* py, const void* pz, long long p_stride, const void* scalars,
+                       void* table, void* ox, void* oy, void* oz, long long n, void* stream) {
+  constexpr long long PTS = 32 / T::POINT_LANES;
+  const auto kernel = g1_glv_kernel<T>;
+  const int smem = GlvLaunch<T>::TABLES == SHARED ? (int)(PTS * TABLE_WORDS * 4) : 0;
+  if (smem) {  // the tables' shared memory, and the SM's carveout at its most shared
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<(unsigned)((n + PTS - 1) / PTS), 32, smem, (cudaStream_t)stream>>>(
       (const uint32_t*)px, (const uint32_t*)py, (const uint32_t*)pz, p_stride, (const uint32_t*)scalars,
       (uint32_t*)table, (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, n);
+  return cudaSuccess;
 }
+
+// K8's forms: 1 Four, 2 Pair; 0 by the launch: Four while every warp has a
+// scheduler of its own (eight points a warp, four schedulers an SM), Pair
+// from there (PERF.md's sweep). Sets form to the one that runs.
+constexpr int GLV_FORMS = 2;
+
+cudaError_t glv_form(int& form, long long n, int device) {
+  if (form != 0) return cudaSuccess;
+  int sms = 0;
+  const cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  form = n <= 4ll * sms * 8 ? 1 : 2;
+  return err;
+}
+bool glv_scratch(int form) { return form == 2; }
 
 }  // namespace
 
+// Words of device scratch a launch of n points in this form needs on
+// `device` (0: none; -1: a bad form or a failed device query).
+extern "C" long long zk_g1_glv_scratch_words(int form, long long n, int device) {
+  if (form < 0 || form > GLV_FORMS || glv_form(form, n, device) != cudaSuccess) return -1;
+  return glv_scratch(form) ? n * TABLE_WORDS : 0;
+}
+
 // n >= 1 points (element stride p_stride words), a raw scalar each ((n, 8)
-// words); table: n * 1152 words of scratch. form 1: one point a warp
-// (Team); 2: four (Quad); 3: sixteen (Solo); 0: by the launch, Team below
-// GLV_QUAD_FROM points, Solo from GLV_SOLO_FROM, Quad between. Every form
-// gives the same bits.
+// words); table: zk_g1_glv_scratch_words(form, n, device) words of scratch
+// (may be null where that is 0). Every form gives the same bits.
 extern "C" int zk_g1_glv(int form, const void* px, const void* py, const void* pz, long long p_stride,
                          const void* scalars, void* table, void* ox, void* oy, void* oz, long long n, void* stream,
                          int device) {
-  if (form == 0) form = n < GLV_QUAD_FROM ? 1 : n >= GLV_SOLO_FROM ? 3 : 2;
-  if (n < 1 || n > (1ll << 32) || form < 1 || form > 3 || table == nullptr) return (int)cudaErrorInvalidValue;
+  if (n < 1 || n > (1ll << 32) || form < 0 || form > GLV_FORMS) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = glv_form(form, n, device);
+  if (err != cudaSuccess) return (int)err;
+  if (glv_scratch(form) && table == nullptr) return (int)cudaErrorInvalidValue;
   return on_device(device, [&] {
-    if (form == 1) launch_glv<Team>(px, py, pz, p_stride, scalars, table, ox, oy, oz, n, stream);
-    else if (form == 2) launch_glv<Quad>(px, py, pz, p_stride, scalars, table, ox, oy, oz, n, stream);
-    else launch_glv<Solo>(px, py, pz, p_stride, scalars, table, ox, oy, oz, n, stream);
+    switch (form) {
+      case 1: return launch_glv<Four>(px, py, pz, p_stride, scalars, table, ox, oy, oz, n, stream);
+      default: return launch_glv<Pair>(px, py, pz, p_stride, scalars, table, ox, oy, oz, n, stream);
+    }
   });
 }

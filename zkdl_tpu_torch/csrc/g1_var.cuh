@@ -1,5 +1,5 @@
-// G1 formulas over the team layouts of fp_team.cuh (Team, Quad, Solo),
-// shared by K5 (g1_var.cu) and K8 (g1_glv.cu): g1.py's add (add-2007-bl,
+// G1 formulas over the team layouts of fp_team.cuh (Team, Quad, Solo), for
+// K5 (g1_var.cu): g1.py's add (add-2007-bl,
 // :106-132) and double (dbl-2009-l, :90-103) value for value, so the
 // Jacobian limbs are the JAX package's; the launch geometry of each layout;
 // and the host helper that launches on a given device.
@@ -72,31 +72,6 @@ struct Var {
     const Fp DE = tm.mul(tm.sub(D, X3d), E);
     sum = {X3, Y3, Z3};
     dbl2 = {X3d, tm.sub(DE, tm.dbl(tm.dbl(tm.dbl(C)))), tm.dbl(YZ)};
-  }
-
-  // add-2007-bl (g1.py:add :106-132) of P1 and P2, neither the identity,
-  // alone (K8): its 16 products in 8 rounds of two, each round's pair
-  // independent; same: equal points (then add gives double(P1), which the
-  // caller runs).
-  __device__ static void add(const T& tm, const Pt& P1, const Pt& P2, Pt& sum, bool& same) {
-    Fp Z1Z1, Z2Z2, U1, U2, I, S1a, S2a, J, V, S1, S2, ZZ, RR, SJ, VR, Z3;
-    tm.mul2(P1.z, P1.z, P2.z, P2.z, Z1Z1, Z2Z2);
-    tm.mul2(P1.x, Z2Z2, P2.x, Z1Z1, U1, U2);
-    const Fp H = tm.sub(U2, U1);
-    const Fp H2 = tm.dbl(H);
-    tm.mul2(H2, H2, P1.y, P2.z, I, S1a);
-    tm.mul2(P2.y, P1.z, H, I, S2a, J);
-    tm.mul2(U1, I, S1a, Z2Z2, V, S1);
-    const Fp ZS = tm.add(P1.z, P2.z);
-    tm.mul2(S2a, Z1Z1, ZS, ZS, S2, ZZ);
-    same = tm.eq(U1, U2) & tm.eq(S1, S2);  // both ballots on every lane: no short circuit
-    const Fp R = tm.dbl(tm.sub(S2, S1));
-    tm.mul2(R, R, S1, J, RR, SJ);
-    const Fp X3 = tm.sub(tm.sub(RR, J), tm.dbl(V));
-    const Fp VX = tm.sub(V, X3);
-    const Fp T2 = tm.sub(tm.sub(ZZ, Z1Z1), Z2Z2);
-    tm.mul2(VX, R, T2, H, VR, Z3);
-    sum = {X3, tm.sub(VR, tm.dbl(SJ)), Z3};
   }
 
   // One bit of g1.py:scalar_mul: out = bit ? add(out, acc) : out, acc =

@@ -28,8 +28,9 @@ densely, one thread an add. On CPU tensors they run ``scalar_mul_plain``/``add_p
 
 ``scalar_mul_glv`` on CUDA tensors launches K8 (``csrc/g1_glv.cu``), which
 replaces the XLA loop of g1.py:scalar_mul_glv (:302-326) limb for limb: the
-scalar split in the kernel, a point's two 16-entry tables in a device
-scratch, the window walk on K5's layouts and formulas. On CPU tensors it
+scalar split in the kernel, a point's two 16-entry tables in shared memory
+or in a device scratch, the window walk on K8's own carry-chain Fp product
+(``csrc/fp_chain.cuh``) in the forms of ``GLV_FORMS``. On CPU tensors it
 runs ``scalar_mul_glv_plain``.
 """
 
@@ -65,8 +66,12 @@ SCALAR_MUL = Kernel("g1_scalar_mul", "zkdl_tpu_torch/csrc/g1_var.cu", "zkdl_tpu/
 ADD = Kernel("g1_add", "zkdl_tpu_torch/csrc/g1_var.cu", "zkdl_tpu/curve/g1.py:106")
 GLV = Kernel("g1_scalar_mul_glv", "zkdl_tpu_torch/csrc/g1_glv.cu", "zkdl_tpu/curve/g1.py:302")
 KERNELS = (COMB, SCALAR_MUL, ADD, GLV)
-# K5's and K8's layouts (csrc/g1_var.cu, g1_glv.cu): chosen by the launch's size, or forced
+# K5's layouts (csrc/g1_var.cu): chosen by the launch's size, or forced
 SCALAR_MUL_FORMS = {"auto": 0, "warp": 1, "quad": 2, "pair": 3}
+# K8's forms (csrc/g1_glv.cu): four lanes a point with the tables in shared
+# memory, two lanes a point with the tables in a device scratch; chosen by
+# the launch's size, or forced
+GLV_FORMS = {"auto": 0, "four": 1, "pair": 2}
 
 _COMB_W = 4
 _COMB_WINDOWS = 256 // _COMB_W
@@ -518,7 +523,6 @@ _BETA_MONT = mp.limbs_from_int(fp.SPEC.to_mont_int(_BETA_INT), 12)
 _GLV_WINDOW = 4
 _GLV_BITS = 132  # ceil over 129 to a window multiple
 _GLV_WINDOWS = _GLV_BITS // _GLV_WINDOW
-_GLV_TABLE_WORDS = 2 * (1 << _GLV_WINDOW) * 3 * 12  # K8's scratch a point: two tables of 16 (x, y, z)
 
 
 def glv_decompose(scalar: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -604,6 +608,8 @@ def _glv_lib() -> ctypes.CDLL:
         P, I = ctypes.c_void_p, ctypes.c_longlong
         lib.zk_g1_glv.argtypes = [ctypes.c_int, P, P, P, I, P, P, P, P, P, I, P, ctypes.c_int]
         lib.zk_g1_glv.restype = ctypes.c_int
+        lib.zk_g1_glv_scratch_words.argtypes = [ctypes.c_int, I, ctypes.c_int]
+        lib.zk_g1_glv_scratch_words.restype = I
         lib._zk_typed = True
     return lib
 
@@ -611,9 +617,9 @@ def _glv_lib() -> ctypes.CDLL:
 def scalar_mul_glv(p: G1Jac, scalar: torch.Tensor, form: str = "auto") -> G1Jac:
     """scalar * p by g1.py:scalar_mul_glv, limb for limb (group-equal to
     scalar_mul, not limb-equal). scalar: raw uint32 (*p.shape, 8), one per
-    point. K8 on CUDA tensors, in the layout
-    ``form`` (a key of SCALAR_MUL_FORMS; every form gives the same bits),
-    with a scratch of 4608 bytes a point for its tables; the plain version
+    point. K8 on CUDA tensors, in the form ``form`` (a key of GLV_FORMS;
+    every form gives the same bits), with a device scratch for its tables
+    (4608 bytes a point) where the form keeps them there; the plain version
     on CPU ones. The endomorphism split is group-correct for points in the
     order-r subgroup only (the JAX package's glv_safe generators)."""
     _check_points(p)
@@ -627,9 +633,13 @@ def scalar_mul_glv(p: G1Jac, scalar: torch.Tensor, form: str = "auto") -> G1Jac:
         pr, ps = _rows_and_stride(p)
         n = pr.x.shape[0]
         sc = scalar.reshape(-1, 8).contiguous()
-        table = torch.empty((max(n, 1), _GLV_TABLE_WORDS), dtype=torch.uint32, device=dev)
-        out = _launch(GLV, functools.partial(_glv_lib().zk_g1_glv, SCALAR_MUL_FORMS[form]), dev, n,
-                      *(c.data_ptr() for c in pr), ps, sc.data_ptr(), table.data_ptr())
+        lib = _glv_lib()
+        words = lib.zk_g1_glv_scratch_words(GLV_FORMS[form], n, dev.index)
+        if words < 0:
+            raise RuntimeError(f"{GLV.name}: no scratch size for form {form!r} on {dev}")
+        table = torch.empty(words, dtype=torch.uint32, device=dev) if words else None
+        out = _launch(GLV, functools.partial(lib.zk_g1_glv, GLV_FORMS[form]), dev, n,
+                      *(c.data_ptr() for c in pr), ps, sc.data_ptr(), None if table is None else table.data_ptr())
     return G1Jac(*(c.reshape(*shape, 12) for c in out))
 
 
