@@ -15,6 +15,9 @@ builds and runs.
                                                # shapes (and FILE's launches replayed)
     python3 chip_smoke.py --save-k8-launches FILE  # every phase; phase 6 writes one committed
                                                    # verify's K8 launches to FILE
+    python3 chip_smoke.py --sharded --ranks N --backend nccl|gloo
+                                        # phase 1 and phase 9 on N ranks: one card a rank with
+                                        # NCCL (N cards), or every rank on card 0 with gloo
 
 `--comb`, `--var-times`, `--k7-times` and `--glv-times` time K4 (and K5, K6;
 K7; K8) on the same seeded inputs in any checkout of the port they are copied
@@ -67,7 +70,7 @@ Phases (each prints its own lines; any failure exits nonzero):
      the run (all > 0), two tampered copies of the interleaved proof
      rejected with the JAX verifier's reasons; the demo again with
      `--commit-aux --verify`; then phase 4's model proved grouped and
-     interleaved, alternately, for the two schedules' spp
+     interleaved in turn (one pair), for the two schedules' spp
   6. (run after phase 4) the committed-aux tier at zkdl256, full width and
      depth (BENCH_CONFIG=zkdl256_committed): warm and steady grouped proves,
      proof bytes, the verify with Fiat-Shamir replay, the launches of every
@@ -83,7 +86,7 @@ Phases (each prints its own lines; any failure exits nonzero):
      set-bit share of its bits and the lane use of one thread a pair against
      K6's per-block list; K5's device time in one committed verify and K6's
      in one committed prove (torch.profiler) beside the sums of their
-     bounds; committed and ordinary proves alternately; an interleaved
+     bounds; a committed and an ordinary prove in turn; an interleaved
      committed proof verified; four tampered copies rejected with the JAX
      verifier's reasons
   7. the attention block (BENCH_CONFIG=attention: seq 128, d_model 128,
@@ -115,6 +118,23 @@ Phases (each prints its own lines; any failure exits nonzero):
      verify, a tampered output rejected with the JAX reason, and the small
      case of tests/test_conv.py on the card equal to the CPU's proof and the
      JAX recorder's (slice11_jax.npz)
+  9. (after phase 4) the multi-device prover: two ranks on the one card
+     (torch.distributed, gloo, each rank's tensors on cuda:0, staged
+     through host memory for the collectives), each building zkdl256 from
+     PRNGKey(0), inferring it whole and proving it chained under FiatShamir
+     with parallel.model.prove_sharded (dp 2), warm and steady: every rank's
+     serialized proof must have the SHA-256 of phase 4's proof, the port's
+     verifier must accept it with replay, K1-K4 and K9 must launch on each
+     rank (launches, all-reduces and their bytes a prove printed, the
+     steady prove's seconds beside phase 4's); phase 3's small model proved
+     unchained (SeededRng) and committed-aux by the two ranks, equal to its
+     single-device proofs; the dry run (parallel/dryrun.py) on a (1, 2)
+     mesh; and pedersen.open on one zkdl256 layer's 2048 generators taken
+     as opaque (K5, K6, K8), equal to open_planar's proof in affine form and
+     accepted by pedersen.verify_open. Phase 2 also holds K9 (fr_collect,
+     the canonical cross-rank Fr sum) bit for bit against its plain version
+     on sums of n copies of p - 1, zeros and random values, n = 1 to 255,
+     at 1 to 4097 values, and times it at a sharded sumcheck's width
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -1085,6 +1105,73 @@ def phase_kernels(records: dict) -> None:
     records["fr_dot"] = {**shapes["(8, 2^22)"], "max_abs_err": errs["fr_dot"], "library_ms": None}
 
 
+# K9's edge set: sums of n copies of p - 1 over n ranks (128 the largest the
+# JAX reduce_mod_p names, 255 K9's limit), zeros, random canonical values
+# summed over n ranks; at each width of COLLECT_WIDTHS values
+COLLECT_RANKS = (1, 2, 4, 8, 128, 255)
+COLLECT_WIDTHS = (1, 2, 3, 69, 255, 256, 257, 4096, 4097)
+# a zkdl256 chained sharded prove's widest K9 launch: one sumcheck's local
+# rounds' polys, mag_bin's 23 rounds x 3 at 2 ranks (2^19 elements x 32 bits)
+COLLECT_MAIN_WIDTH = 69
+
+
+def collect_sums(rng, n_ranks: int, width: int, kind: str, device):
+    """(width, 8) int64 limb sums of n_ranks canonical values each: every
+    value p - 1 ("max"), 0 ("zero") or random below p ("random")."""
+    import torch
+    from zkdl_tpu_torch.field import fr
+
+    if kind == "zero":
+        return torch.zeros((width, 8), dtype=torch.int64, device=device)
+    if kind == "max":
+        row = torch.from_numpy(fr.from_int(fr.P_INT - 1).astype(np.int64))
+        return (row * n_ranks).expand(width, 8).contiguous().to(device)
+    vals = rng.integers(0, 1 << 32, size=(n_ranks, width, 8), dtype=np.uint64)
+    vals[..., 7] %= np.uint64(fr.P_TOP_LIMB)
+    return torch.from_numpy(vals.astype(np.int64).sum(0)).to(device)
+
+
+def collect_bound(width: int) -> tuple[float, str]:
+    """K9's bound: 64 bytes of limb sums in and 32 of value out a value; its
+    ~200 integer operations a value (a carry pass, eight 9-word
+    subtractions) are no multiply-adds."""
+    return bound_ms(96 * width, 0)
+
+
+def phase_collect(records: dict) -> None:
+    """K9 (csrc/fr_collect.cu) against its plain version on the card, bit for
+    bit, at every width of COLLECT_WIDTHS on the sums of n copies of p - 1,
+    zeros and random values for n in COLLECT_RANKS, each also against the
+    integer sum; timed at COLLECT_MAIN_WIDTH."""
+    import torch
+    from zkdl_tpu_torch.field import fr, kernels, mp
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(9)
+    checked = 0
+    for n in COLLECT_RANKS:
+        for kind in ("max", "zero", "random"):
+            for w in COLLECT_WIDTHS:
+                sums = collect_sums(rng, n, w, kind, dev)
+                got = kernels.collect(sums)
+                same(f"fr_collect {kind} n={n} width={w}", got, kernels.collect_plain(sums))
+                rows = sums[:: max(1, w // 3)].cpu().numpy()
+                for row, g in zip(rows, got[:: max(1, w // 3)].cpu().numpy()):
+                    if mp.int_from_limbs(g) != sum(int(x) << (32 * k) for k, x in enumerate(row)) % fr.P_INT:
+                        raise AssertionError(f"fr_collect {kind} n={n} width={w}: not the sum mod p")
+                checked += 1
+    sums = collect_sums(rng, 2, COLLECT_MAIN_WIDTH, "random", dev)
+    err = max_abs_err(kernels.collect(sums), kernels.collect_plain(sums))
+    ms, pms = cuda_ms(lambda: kernels.collect(sums), 50), cuda_ms(lambda: kernels.collect_plain(sums), 5)
+    bms, by = collect_bound(COLLECT_MAIN_WIDTH)
+    records["fr_collect"] = {"ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by, "max_abs_err": err,
+                             "library_ms": None}
+    log(f"[kernels] fr_collect (K9) bit-equal to plain on {checked} sets (n copies of p - 1, zeros, random values "
+        f"over n = {', '.join(map(str, COLLECT_RANKS))} ranks at widths {', '.join(map(str, COLLECT_WIDTHS))}), "
+        f"each the integer sum mod p; at {COLLECT_MAIN_WIDTH} values (a zkdl256 sharded sumcheck's local rounds) "
+        f"{ms:.4f} ms (plain {pms:.3f} ms, bound {bms:.7f} ms by {by}; no PyTorch call computes it)")
+
+
 # ---------------------------------------------------------------------------
 # phase 3
 # ---------------------------------------------------------------------------
@@ -1574,14 +1661,14 @@ def count_verify_reveals(model, proof, X, Y) -> tuple[dict, int]:
     return {k: v - before[k] for k, v in bench.launch_counts().items()}, batches[0]
 
 
-def phase_committed(records: dict, ordinary: dict, pairs: int = 3, save_k8: str | None = None) -> dict:
+def phase_committed(records: dict, ordinary: dict, pairs: int = 1, save_k8: str | None = None) -> dict:
     """The committed-aux tier at zkdl256 (BENCH_CONFIG=zkdl256_committed
     through bench.run: phase 4's model, built again from PRNGKey(0), full
     width and depth): warm and steady grouped proves, the proof's size, the
     verify with Fiat-Shamir replay, per-layer seconds and the launches of
     every kernel in this run (all > 0); the NUMS generators against the JAX
     digests and the commitments against plain; K6 timed at a commitment's
-    levels; committed and ordinary grouped proves alternately; one
+    levels; `pairs` committed and ordinary grouped proves in turn; one
     interleaved committed prove verified; the four faults of
     COMMITTED_FAULTS each rejected with the JAX verifier's reason."""
     import torch
@@ -1595,7 +1682,8 @@ def phase_committed(records: dict, ordinary: dict, pairs: int = 3, save_k8: str 
         k.launches = 0
     res = bench.run("zkdl256_committed", device="cuda", split=True)
     torch.cuda.synchronize()
-    launches = {k: v for k, v in bench.launch_counts().items() if k != kernels.INVERSE.name}  # K1-K6, K8
+    launches = {k: v for k, v in bench.launch_counts().items()
+                if k not in (kernels.INVERSE.name, kernels.COLLECT.name)}  # K1-K6, K8
     log(f"[committed] zkdl256_committed: build {res['build_s']:.3f}s, infer {res['infer_s']:.3f}s, prove warm "
         f"{res['warm_prove_s']:.3f}s, steady {res['prove_s']:.3f}s, {res['spp']:.6f} s/point, peak device memory "
         f"of the prove {res['prove_peak_gib']:.2f} GiB")
@@ -1963,9 +2051,9 @@ def phase_demo(records: dict) -> None:
     records["_demo"] = runs
 
 
-def phase_schedules(records: dict, res: dict, pairs: int = 3) -> None:
+def phase_schedules(records: dict, res: dict, pairs: int = 1) -> None:
     """Phase 4's zkdl256 model proved with the grouped and the
-    round-interleaved schedule alternately (steady spp of each, launches
+    round-interleaved schedule in turn, `pairs` times (steady spp of each, launches
     of one interleaved prove); the last interleaved proof is verified and
     two tampered copies are rejected with the JAX verifier's reasons."""
     from zkdl_tpu_torch import bench
@@ -2004,6 +2092,227 @@ def phase_schedules(records: dict, res: dict, pairs: int = 3) -> None:
         log(f"[schedules] tampered {path}: rejected in {time.perf_counter() - t0:.3f}s: {want}")
     records["_schedules"] = {"spp": spp, "interleaved_launches_per_prove": launches,
                              "interleaved_verify_s": verify_s}
+# ---------------------------------------------------------------------------
+# phase 9: the multi-device prover (torch.distributed ranks)
+# ---------------------------------------------------------------------------
+
+SMALL_DIMS, SMALL_BATCH = [64, 64, 64], 4  # phase 3's model
+SHARDED_DEADLINE_S = 600  # a launch's ranks are killed past it
+
+
+def small_model(device):
+    """Phase 3's small model and input: (model, X)."""
+    from zkdl_tpu_torch.bench import make_weights
+    from zkdl_tpu_torch.commit.pedersen import to_mont_rows
+    from zkdl_tpu_torch.models import mlp, quantize
+    from zkdl_tpu_torch.utils import prng
+
+    weights = make_weights(SMALL_DIMS, np.random.default_rng(3))
+    X_np = np.random.default_rng(4).standard_normal((SMALL_BATCH, SMALL_DIMS[0])).astype(np.float32)
+    return mlp.MLP.from_float_weights(weights, prng.PRNGKey(5), device), \
+        to_mont_rows(quantize.load_input(X_np, device))
+
+
+def proof_sha(proof) -> str:
+    from zkdl_tpu_torch.io import proof_io
+
+    return hashlib.sha256(proof_io.serialize(proof)).hexdigest()
+
+
+def sharded_rank(argv) -> None:
+    """One rank of phase 9 (multihost.launch target; argv: out_dir, then
+    "single" where rank 0 also makes the single-device zkdl256 proof):
+    zkdl256 built from PRNGKey(0) and inferred whole, then proved chained
+    under FiatShamir by prove_sharded on a dp mesh of every rank, warm and
+    steady (launches of every kernel and the collectives of the steady
+    prove counted alone); rank 0 verifies it with replay. Then phase 3's
+    small model proved unchained (SeededRng) and committed-aux, and the dry
+    run on a (n/2, 2) mesh. Writes rank<r>.json (and rank 0 zkdl256.bin)."""
+    import torch
+    import torch.distributed as dist
+    from zkdl_tpu_torch import bench
+    from zkdl_tpu_torch.commit.pedersen import to_mont_rows
+    from zkdl_tpu_torch.models import mlp, quantize
+    from zkdl_tpu_torch.parallel import collectives, dryrun, multihost, sharded
+    from zkdl_tpu_torch.parallel import model as pmodel
+    from zkdl_tpu_torch.sumcheck.transcript import FiatShamir, SeededRng
+    from zkdl_tpu_torch.utils import prng
+
+    out, single = argv[0], argv[1:] == ["single"]
+    rank, world = dist.get_rank(), dist.get_world_size()
+    mesh = multihost.global_mesh(tp=1)
+    dev = mesh.device
+    rec: dict = {"rank": rank, "device": str(dev)}
+    t0 = time.perf_counter()
+    say = lambda msg: log(f"[rank {rank}] {time.perf_counter() - t0:.1f}s {msg}")  # noqa: E731
+    say(f"joined the group of {world} on {dev}")
+    rng = np.random.default_rng(0)
+    dims, batch = bench.ZKDL_DIMS, 256
+    model = mlp.MLP.from_float_weights(bench.make_weights(dims, rng), prng.PRNGKey(0), dev)
+    X = to_mont_rows(quantize.load_input(rng.standard_normal((batch, dims[0])).astype(np.float32), dev))
+    Y, Z, A, aux = model.infer(X)
+    torch.cuda.synchronize(dev)
+    rec["build_infer_s"] = time.perf_counter() - t0
+    say("zkdl256 built and inferred")
+
+    def prove():
+        dist.barrier()
+        t = time.perf_counter()
+        p = pmodel.prove_sharded(model, X, Y, Z, A, aux, mesh, FiatShamir(), chain=True)
+        torch.cuda.synchronize(dev)
+        return p, time.perf_counter() - t
+
+    _, rec["warm_prove_s"] = prove()
+    say("warm sharded prove done")
+    before = bench.launch_counts()
+    collectives.reset_stats()
+    proof, rec["prove_s"] = prove()
+    rec["launches"] = {k: v - before[k] for k, v in bench.launch_counts().items()}
+    rec["collectives"] = dict(collectives.STATS)
+    rec["sha256"] = proof_sha(proof)
+    say("steady sharded prove done")
+    if rank == 0:
+        from zkdl_tpu_torch.io import proof_io
+
+        with open(os.path.join(out, "zkdl256.bin"), "wb") as f:
+            f.write(proof_io.serialize(proof))
+        t = time.perf_counter()
+        rec["verify"] = list(model.verify(proof, X=X, Y_hat=Y, transcript=FiatShamir()))
+        rec["verify_s"] = time.perf_counter() - t
+    if single:
+        dist.barrier()
+        if rank == 0:
+            mlp.prove_timed(model, X, batch)
+            p, spp = mlp.prove_timed(model, X, batch)
+            rec["single_sha256"], rec["single_prove_s"] = proof_sha(p), spp * batch
+        dist.barrier()
+    del model, X, Y, Z, A, aux, proof
+
+    say("zkdl256 done")
+    small, Xs = small_model(dev)
+    Ys, Zs, As, auxs = small.infer(Xs)
+    rec["small"] = {
+        "unchained": proof_sha(pmodel.prove_sharded(small, Xs, Ys, Zs, As, auxs, mesh, SeededRng(12345))),
+        "committed": proof_sha(pmodel.prove_sharded(small, Xs, Ys, Zs, As, auxs, mesh, FiatShamir(), chain=True,
+                                                    commit_aux=True)),
+    }
+    if rank == 0:
+        rec["small_single"] = {
+            "unchained": proof_sha(small.prove(Xs, Ys, Zs, As, auxs, SeededRng(12345), chain=False)),
+            "committed": proof_sha(small.prove(Xs, Ys, Zs, As, auxs, FiatShamir(), commit_aux=True)),
+        }
+    say("small model done")
+    rec["dryrun"] = dryrun.run(sharded.make_mesh(shape=(world // 2, 2) if world % 2 == 0 else (world, 1)))
+    say("dry run done")
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+def phase_sharded(records: dict, n_ranks: int, backend: str, device: str, single_sha: str | None = None,
+                  single_prove_s: float | None = None) -> None:
+    """Phase 9: sharded_rank on n_ranks ranks of this host. Every rank's
+    zkdl256 proof must have the SHA-256 of the single-device chained proof
+    (phase 4's, or rank 0's own where single_sha is None), the port's
+    verifier must accept it, K1-K4 and K9 must launch on every rank; the
+    small model's sharded proofs must equal its single-device proofs; the
+    dry run must pass. Prints the all-reduces and their bytes a prove and
+    the steady prove's seconds beside the single-device prove's."""
+    import shutil
+
+    from zkdl_tpu_torch.field import kernels
+    from zkdl_tpu_torch.parallel import multihost
+
+    work = tempfile.mkdtemp(prefix="zkdl_sharded_")
+    t0 = time.perf_counter()
+    try:
+        multihost.launch(f"{os.path.abspath(__file__)}:sharded_rank", n_ranks, backend, device,
+                         args=[work] + ([] if single_sha else ["single"]), timeout_s=SHARDED_DEADLINE_S,
+                         workdir=work)
+        ranks = []
+        for r in range(n_ranks):
+            with open(os.path.join(work, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    if single_sha is None:
+        single_sha, single_prove_s = ranks[0]["single_sha256"], ranks[0]["single_prove_s"]
+    for rec in ranks:
+        r = rec["rank"]
+        if rec["sha256"] != single_sha:
+            raise AssertionError(f"rank {r}'s sharded zkdl256 proof {rec['sha256']} != the single-device "
+                                 f"proof {single_sha}")
+        for mode, sha in rec["small"].items():
+            if sha != ranks[0]["small_single"][mode]:
+                raise AssertionError(f"rank {r}'s sharded {mode} proof of the small model != its single-device proof")
+        launched = {k: rec["launches"][k] for k in (*(k.name for k in kernels.FR_KERNELS), "g1_comb", "fr_collect")}
+        if min(launched.values()) <= 0:
+            raise AssertionError(f"rank {r}: a kernel of the sharded path was not launched: {launched}")
+        log(f"[sharded] rank {r} on {rec['device']}: build + infer {rec['build_infer_s']:.3f}s, sharded prove warm "
+            f"{rec['warm_prove_s']:.3f}s, steady {rec['prove_s']:.3f}s; launches of the steady prove "
+            f"{json.dumps(rec['launches'])}; collectives {json.dumps(rec['collectives'])}")
+        log(f"[sharded] rank {r}: {rec['dryrun']}")
+    if ranks[0]["verify"] != [True, ""]:
+        raise AssertionError(f"the port's verifier rejected the sharded zkdl256 proof: {ranks[0]['verify']}")
+    stats = ranks[0]["collectives"]
+    log(f"[sharded] zkdl256 chained (FiatShamir) on {n_ranks} ranks ({backend}, {device}): every rank's proof has "
+        f"the single-device proof's SHA-256 {single_sha}; accepted by MLP.verify(X, Y_hat, FiatShamir()) in "
+        f"{ranks[0]['verify_s']:.3f}s; a prove makes {stats['all_reduce']} all-reduces of "
+        f"{stats['all_reduce_bytes']} bytes and {stats['all_gather']} all-gathers of {stats['all_gather_bytes']} "
+        f"bytes on each rank; steady sharded prove {ranks[0]['prove_s']:.3f}s beside the single-device prove's "
+        f"{single_prove_s:.3f}s in this call (a record, not a claim); the small model's unchained (SeededRng) and "
+        f"committed-aux sharded proofs equal its single-device proofs; {wall:.1f}s with the ranks' start")
+    records.setdefault("fr_collect", {})["launches"] = ranks[0]["launches"]["fr_collect"]
+    records["_sharded"] = {"ranks": n_ranks, "backend": backend, "device": device, "single_sha256": single_sha,
+                           "single_prove_s": single_prove_s, "wall_s": wall,
+                           **{k: [rec[k] for rec in ranks] for k in ("build_infer_s", "warm_prove_s", "prove_s",
+                                                                     "launches", "collectives")},
+                           "verify_s": ranks[0]["verify_s"]}
+
+
+def phase_me_open(res: dict, records: dict) -> None:
+    """me_open on the opaque generators of one zkdl256 layer (relu[1]'s FC,
+    1024 rows over 2048 generators, treated as opaque: no dlogs): open()'s
+    G1 MLE of the row commitments (K5, K6) and me_open's rounds (K8 on
+    these subgroup generators, K6), against open_planar's proof in affine
+    form (the final scalar exactly), accepted by pedersen.verify_open."""
+    import torch
+    from zkdl_tpu_torch import bench
+    from zkdl_tpu_torch.commit import pedersen
+    from zkdl_tpu_torch.curve import convert, g1
+    from zkdl_tpu_torch.sumcheck import protocols as sc
+    from zkdl_tpu_torch.tensor import fr_ops
+    from zkdl_tpu_torch.utils import prng
+
+    layer = res["model"].layers[1]
+    n_vars = fr_ops.ceil_log2(layer.weights.shape[0])
+    u = pedersen.to_mont_rows(fr_ops.random_fr(prng.PRNGKey(77), n_vars, "cpu"))
+    want = pedersen.open_planar(layer.gens, layer.weights, layer.com, u)
+    before = bench.launch_counts()
+    t0 = time.perf_counter()
+    got = pedersen.open(pedersen.Generators(points=layer.gens.points, glv_safe=True), layer.weights,
+                        pedersen.RowCommitments(points=layer.com.points), u)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k: v - before[k] for k, v in bench.launch_counts().items() if v - before[k]}
+    aff = lambda p: convert.affine_from_device(g1.G1Jac(*(c.reshape(-1, 12) for c in p)))  # noqa: E731
+    for name, g, w in [("com_at_u_row", got.com_at_u_row, want.com_at_u_row), ("final_gen", got.final_gen,
+                                                                                 want.final_gen)] + [
+            (f"round {i}", g, w) for i, (g, w) in enumerate(zip(got.round_points, want.round_points))]:
+        if aff(g) != aff(w):
+            raise AssertionError(f"me_open at {layer.gens.size} generators: {name} != open_planar's in affine form")
+    if not torch.equal(got.final_scalar, want.final_scalar) or len(got.round_points) != len(want.round_points):
+        raise AssertionError("me_open's final scalar or round count != open_planar's")
+    value = sc.scalars_to_ints(fr_ops.me_eval(layer.weights, u)[None])[0]
+    ok = pedersen.verify_open(got, sc.scalars_to_ints(u), value)
+    if ok != (True, ""):
+        raise AssertionError(f"pedersen.verify_open rejected me_open's opening: {ok}")
+    log(f"[me_open] open() on layer 1's {layer.gens.size} opaque generators ({layer.com.points.x.shape[0]} rows): "
+        f"{secs:.3f}s, launches {json.dumps(launches)}; every point equal to open_planar's in affine form, the "
+        f"final scalar exactly; accepted by pedersen.verify_open")
+    records["_me_open"] = {"generators": layer.gens.size, "s": secs, "launches": launches}
+
+
 # ---------------------------------------------------------------------------
 # phase 7: the attention block and K7
 # ---------------------------------------------------------------------------
@@ -2413,7 +2722,7 @@ def phase_attention(records: dict) -> None:
         k.launches = 0
     res = bench.run("attention", device="cuda")
     torch.cuda.synchronize()
-    launches = bench.launch_counts()
+    launches = {k: v for k, v in bench.launch_counts().items() if k != kernels.COLLECT.name}  # K9: multi-device only
     log(f"[attention] seq 128, d 128, committed witness: build {res['build_s']:.3f}s, forward {res['forward_s']:.3f}s, "
         f"prove warm {res['warm_prove_s']:.3f}s, steady {res['prove_s']:.3f}s ({res['prover_s_per_row']:.6f} s/row), "
         f"peak device memory of the prove {res['prove_peak_gib']:.3f} GiB")
@@ -2501,6 +2810,16 @@ def main() -> int:
     times_only = args in (["--comb"], ["--var-times"], ["--k7-times"], ["--glv-times"])
     phase_build(host_library=not times_only, check_spills=not times_only)
     dev = torch.device("cuda")
+    if args[:1] == ["--sharded"]:
+        opts = dict(zip(args[1::2], args[2::2]))
+        n, backend = int(opts.get("--ranks", 2)), opts.get("--backend", "gloo")
+        if len(args) % 2 == 0 or set(opts) - {"--ranks", "--backend"} or backend not in ("gloo", "nccl"):
+            print("usage: chip_smoke.py --sharded --ranks N --backend nccl|gloo", file=sys.stderr)
+            return 2
+        phase_sharded(records, n, backend, "cuda" if backend == "nccl" else "cuda:0")
+        print(json.dumps({"sharded": records["_sharded"], "fr_collect_launches": records["fr_collect"]["launches"]}),
+              flush=True)
+        return 0
     if args == ["--comb"]:
         print(json.dumps({"g1_comb_shapes": phase_comb_times(dev, with_plain=False)}), flush=True)
         return 0
@@ -2534,12 +2853,16 @@ def main() -> int:
     phase_kernels(records)
     phase_var(dev, records)
     phase_glv(dev, records)
+    phase_collect(records)
     records["_var_times"] = phase_var_times(dev)
     log(f"[time] phases 1-2: {time.perf_counter() - t0:.1f}s")
     phase_small()
     log(f"[time] phase 3: {time.perf_counter() - t0:.1f}s")
     res = phase_zkdl256(records)
     log(f"[time] phase 4: {time.perf_counter() - t0:.1f}s")
+    phase_sharded(records, 2, "gloo", "cuda:0", single_sha=proof_sha(res["proof"]), single_prove_s=res["prove_s"])
+    phase_me_open(res, records)
+    log(f"[time] phase 9 (sharded, me_open): {time.perf_counter() - t0:.1f}s")
     phase_committed(records, res, save_k8=k8_file)
     log(f"[time] phase 6 (committed): {time.perf_counter() - t0:.1f}s")
     phase_blinded(res, records)
@@ -2574,7 +2897,8 @@ def main() -> int:
                       "g1_scalar_mul_glv_shapes": records["_g1_scalar_mul_glv_shapes"],
                       "to_port_bounds": records["_to_port_bounds"],
                       "blinded": records["_blinded"], "checkpoint": records["_checkpoint"],
-                      "conv": records["_conv"]}), flush=True)
+                      "conv": records["_conv"], "sharded": records["_sharded"],
+                      "me_open": records["_me_open"]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

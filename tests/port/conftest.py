@@ -129,6 +129,13 @@ class _JaxChained:
 
 
 @pytest.fixture(scope="session")
+def shared_tmp(tmp_path_factory):
+    """A directory that every xdist worker of the session shares."""
+    base = tmp_path_factory.getbasetemp()
+    return base.parent if os.environ.get("PYTEST_XDIST_WORKER") else base
+
+
+@pytest.fixture(scope="session")
 def jax_chained(tmp_path_factory):
     base = tmp_path_factory.getbasetemp()
     # xdist workers share the parent of their own temporary directories

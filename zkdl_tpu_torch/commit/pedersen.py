@@ -4,10 +4,14 @@ and the committed-aux tier's NUMS generators and revealed-fold openings.
 Counterpart of ``zkdl_tpu/commit/pedersen.py``: ``Generators``,
 ``RowCommitments``, ``OpeningProof`` (:59-121), ``setup`` (:134-143),
 ``aux_generators`` (:146-155), ``commit`` with the dlog fast path and the
-opaque-generator branch (:157-200), ``open_planar`` (:328-399), the host verifier ``verify_open``
-(:421-464) and ``verify_open_against_com`` (:803-826); the blinded tier:
-``blinding_point``, ``BlindedRowCommitments``, ``commit_blinded``,
-``open_blinded`` and ``verify_open_blinded`` (:483-579); and the
+opaque-generator branch (:157-200), ``_smul`` (:98) and ``_g_pow`` (:129),
+the split-and-fold openings of the (n, 8) reference path: ``me_open_fast``
+with ``_me_open_fast_scalars_body`` (:208-253), the opaque-generator
+``me_open`` (:256-287), ``open`` (:290-325), ``open_planar`` (:328-399),
+the host verifier ``verify_open`` (:421-464) and ``verify_open_against_com``
+(:803-826); the blinded tier: ``blinding_point``, ``BlindedRowCommitments``,
+``commit_blinded``, ``open_blinded`` and ``verify_open_blinded``
+(:483-579); and the
 committed-aux tier: ``nums_generators`` (:607-643), ``commit_bits``
 (:646-671), ``FoldOpening``, ``open_reveal`` and ``verify_reveal``
 (:674-794).
@@ -22,7 +26,9 @@ The committed-aux tier has no dlogs: its NUMS generators are hashed to the
 curve, so its commitments are masked generator sums (K6) and its verifier
 recomputes a generator MSM (K8) and the row commitments' MLE (K5, K6)
 (``curve/g1.py``) on the card for CUDA tensors, in the native host library
-for CPU ones.
+for CPU ones. ``me_open`` folds opaque generators in G1: each round's
+products in one ``_smul`` launch (K8 on subgroup generators, K5 otherwise)
+and its three sums by K6's tree.
 
 Reference quirk kept: the opening's cross-term exponents are the Montgomery
 REPRESENTATION bits of the scalars (the R-scaled group elements), exactly as
@@ -96,6 +102,22 @@ def generators_from_dlogs(dlogs_mont: torch.Tensor) -> Generators:
     """Generators for given Montgomery dlogs (n, 8): points = G^unmont(dlog)."""
     points = g1.generator_pow(from_mont_rows(dlogs_mont))
     return Generators(points=points, dlogs=dlogs_mont, glv_safe=True)
+
+
+def _smul(points: g1.G1Jac, scalars: torch.Tensor, glv_safe: bool) -> g1.G1Jac:
+    """Scalar multiplication of each point by its raw scalar
+    (pedersen.py:_smul): GLV (K8) where the bases are in the order-r
+    subgroup (glv_safe), as the JAX package computes on an accelerator;
+    double-and-add (K5) otherwise. The two agree in the group, not in their
+    Jacobian limbs: no transcript absorbs a point made here."""
+    if glv_safe:
+        return g1.scalar_mul_glv(points, scalars)
+    return g1.scalar_mul(points, scalars)
+
+
+def _g_pow(scalar_1x8: torch.Tensor) -> g1.G1Jac:
+    """G ^ (raw 256-bit value of scalar) for a (1, 8) scalar (pedersen.py:_g_pow): K4."""
+    return g1.generator_pow(scalar_1x8)
 
 
 def setup(key: np.ndarray, gen_size: int, device) -> Generators:
@@ -205,6 +227,111 @@ def _commit_rows_fast(t3: torch.Tensor, dlogs: torch.Tensor) -> torch.Tensor:
     return planar.from_planar(planar.dot(tp, dp[:, None, :])).contiguous()
 
 
+def _proof_points(pts: g1.G1Jac, r: int) -> tuple[list[g1.G1Jac], list[g1.G1Jac]]:
+    """The comb's output of an opening -> (r round points of shape (3,), the
+    points after them, one () point each)."""
+    rounds = [g1.G1Jac(*(c[3 * i : 3 * i + 3] for c in pts)) for i in range(r)]
+    return rounds, [g1.G1Jac(*(c[k] for c in pts)) for k in range(3 * r, pts.x.shape[0])]
+
+
+def _split_fold_rounds(t_f, d, u_in):
+    """The split-and-fold rounds (me_open_step) on bit-reversed planar t_f
+    and dlogs d (8, 2^r), whose contiguous halves are the natural order's
+    pairs: four dots per round. Returns (sigmas (3r, 8), final_scalar (8,),
+    final_dlog_exp (8,) raw)."""
+    sigmas = []
+    for x in u_in:
+        h = t_f.shape[1] // 2
+        s0, s1 = t_f[:, :h], t_f[:, h:]
+        d0, d1 = d[:, :h], d[:, h:]
+        dots = planar.dot_many([(d0, s0), (d1, s1), (d1, s0), (d0, s1)])  # (8, 4)
+        sigmas += [planar.add(dots[:, 0], dots[:, 1]), dots[:, 2], dots[:, 3]]
+        t_f = planar.add(s0, planar.mul_scalar(planar.sub(s1, s0), x))
+        # generators fold reversed by the value of u: r' = r1 + u (r0 - r1)
+        d = planar.add(d1, planar.mul_scalar(planar.sub(d0, d1), x))
+    sig_arr = torch.stack(sigmas) if sigmas else torch.zeros((0, 8), dtype=torch.uint32, device=t_f.device)
+    return sig_arr, t_f[:, 0].contiguous(), planar.from_mont(d[:, 0:1])[:, 0]
+
+
+def _me_open_fast_scalars_body(t: torch.Tensor, d: torch.Tensor, u_in):
+    """Every round's cross-term scalars (3r, 8), the final folded scalar and
+    the final generator's raw dlog exponent (pedersen.py:
+    _me_open_fast_scalars_body) for natural-order t, d (2^r, 8)."""
+    rev = lambda x: pops.bitrev_axis(planar.to_planar(x), axis=1)  # noqa: E731
+    return _split_fold_rounds(rev(t), rev(d), mp.host(u_in))
+
+
+def me_open_fast(t: torch.Tensor, dlogs: torch.Tensor, u_in):
+    """Dlog-domain split-and-fold (pedersen.py:me_open_fast): the proof
+    points of me_open on the generators of `dlogs`, each G^(raw bits of a
+    Montgomery sum), all in one comb launch (K4). t, dlogs: (2^r, 8)
+    Montgomery; u_in host (r, 8). Returns (round_points, final_gen,
+    final_scalar)."""
+    n, r = t.shape[0], u_in.shape[0]
+    if n != 1 << r:
+        raise ValueError(f"me_open_fast: {n} scalars for {r} rounds")
+    sigmas, final_scalar, final_dlog_exp = _me_open_fast_scalars_body(t, dlogs, u_in)
+    rounds, (final_gen,) = _proof_points(g1.generator_pow(torch.cat([sigmas, final_dlog_exp[None]])), r)
+    return rounds, final_gen, final_scalar
+
+
+def me_open(t: torch.Tensor, gens: g1.G1Jac, u_in, glv_safe: bool = False):
+    """Opaque-generator split-and-fold (pedersen.py:me_open; Commitment::
+    me_open, commitment.cu:43-81). t: (2^r, 8) Montgomery scalars, gens:
+    (2^r,) points, u_in: (r, 8) Montgomery. Per round, the pairs (2i, 2i+1)
+    give temp = sum g0^s0 + g1^s1, temp0 = sum g1^s0 and temp1 = sum g0^s1
+    (the scalars' Montgomery representations as raw exponents), t folds to
+    s0 + u (s1 - s0) and the generators to g1 + unmont(u) (g0 - g1). The
+    round's five products run in one _smul launch (K8 where glv_safe, else
+    K5), its three sums in one K6 tree. Returns (round_points, final_gen,
+    final_scalar)."""
+    n, r = t.shape[0], u_in.shape[0]
+    if n != 1 << r or gens.shape != (n,):
+        raise ValueError(f"me_open: {n} scalars, points {tuple(gens.shape)}, {r} rounds")
+    u = mp.host(u_in)
+    tp = planar.to_planar(t)
+    round_points = []
+    for i in range(r):
+        s0, s1 = tp[:, 0::2], tp[:, 1::2]
+        gg0, gg1 = g1.G1Jac(*(c[0::2] for c in gens)), g1.G1Jac(*(c[1::2] for c in gens))
+        h = s0.shape[1]
+        u_raw = torch.from_numpy(fr.from_int(HF.unmont(fr.to_ints(u[i][None])[0]))).to(t.device)
+        rows = [planar.from_planar(x).contiguous() for x in (s0, s1)]
+        prods = _split(_smul(_cat([gg0, gg1, gg1, gg0, g1.add(gg0, g1.neg(gg1))]),
+                             torch.cat([rows[0], rows[1], rows[0], rows[1], u_raw.expand(h, 8)]), glv_safe),
+                       [h] * 5)
+        gens = g1.add(gg1, prods[4])
+        tA = g1.add(prods[0], prods[1])
+        round_points.append(g1.sum_rows(g1.G1Jac(*(torch.stack(cs) for cs in zip(tA, prods[2], prods[3])))))
+        tp = planar.add(s0, planar.mul_scalar(planar.sub(s1, s0), u[i]))
+    return round_points, g1.G1Jac(*(c[0] for c in gens)), planar.from_planar(tp)[0].contiguous()
+
+
+def _row_and_in(u, m: int, gen_size: int, who: str):
+    """(u_row, u_in) of host point u for m rows of gen_size generators."""
+    log_m = fr_ops.ceil_log2(m)
+    if gen_size != (1 << (u.shape[0] - log_m)):
+        raise ValueError(f"{who}: gen size {gen_size} vs point {u.shape} and {log_m} row bits")
+    return u[u.shape[0] - log_m :], u[: u.shape[0] - log_m]
+
+
+def open(gens: Generators, t: torch.Tensor, com: RowCommitments, u) -> OpeningProof:
+    """Opening of t at host point u ((log_rows + log_gen, 8))
+    (pedersen.py:open; Commitment::open, commitment.cu:83-92). With dlogs,
+    open_planar (the JAX fast path's proof); with opaque generators, t
+    folded along u_row, com(u_row) by the G1 MLE (K5, K6) and me_open on the
+    generators."""
+    if gens.dlogs is not None and com.dlogs is not None:
+        return open_planar(gens, t, com, u)
+    u = mp.host(u)
+    gen_size = gens.size
+    u_row, u_in = _row_and_in(u, com.points.x.shape[0], gen_size, "open")
+    t_folded = fr_ops.partial_me(t, u_row, gen_size) if u_row.shape[0] else t
+    com_at = g1.me_eval(com.points, u_row) if u_row.shape[0] else g1.G1Jac(*(c[0] for c in com.points))
+    rounds, final_gen, final_scalar = me_open(t_folded, gens.points, u_in, glv_safe=gens.glv_safe)
+    return OpeningProof(com_at, rounds, final_gen, final_scalar)
+
+
 def open_planar(gens: Generators, t: torch.Tensor, com: RowCommitments, u) -> OpeningProof:
     """Opening of t at host point u ((log_rows + log_gen, 8)): the scalar
     side on the planar kernels, then every proof point (3 per round, final
@@ -212,26 +339,13 @@ def open_planar(gens: Generators, t: torch.Tensor, com: RowCommitments, u) -> Op
     if gens.dlogs is None or com.dlogs is None:
         raise ValueError("open_planar needs the transparent setup (dlogs)")
     u = mp.host(u)
-    gen_size = gens.size
-    m = com.points.x.shape[0]
-    log_m = fr_ops.ceil_log2(m)
-    if gen_size != (1 << (u.shape[0] - log_m)):
-        raise ValueError(f"open_planar: gen size {gen_size} vs point {u.shape} and {log_m} row bits")
-    u_row = u[u.shape[0] - log_m :]
-    u_in = u[: u.shape[0] - log_m]
-    r = u_in.shape[0]
+    u_row, u_in = _row_and_in(u, com.points.x.shape[0], gens.size, "open_planar")
     sigmas, final_scalar, final_dlog_exp, com_exp = _open_planar_scalars(
-        t, com.dlogs, gens.dlogs, u_row, u_in, gen_size
+        t, com.dlogs, gens.dlogs, u_row, u_in, gens.size
     )
-    exps = torch.cat([sigmas, final_dlog_exp[None], com_exp[None]], dim=0)  # (3r+2, 8)
-    pts = g1.generator_pow(exps)
-    round_points = [
-        g1.G1Jac(pts.x[3 * i : 3 * i + 3], pts.y[3 * i : 3 * i + 3], pts.z[3 * i : 3 * i + 3])
-        for i in range(r)
-    ]
-    final_gen = g1.G1Jac(pts.x[3 * r], pts.y[3 * r], pts.z[3 * r])
-    com_at = g1.G1Jac(pts.x[3 * r + 1], pts.y[3 * r + 1], pts.z[3 * r + 1])
-    return OpeningProof(com_at, round_points, final_gen, final_scalar)
+    rounds, (final_gen, com_at) = _proof_points(
+        g1.generator_pow(torch.cat([sigmas, final_dlog_exp[None], com_exp[None]])), u_in.shape[0])
+    return OpeningProof(com_at, rounds, final_gen, final_scalar)
 
 
 def _open_planar_scalars(t, com_dlogs, gen_dlogs, u_row, u_in, gen_size):
@@ -254,22 +368,8 @@ def _open_planar_scalars(t, com_dlogs, gen_dlogs, u_row, u_in, gen_size):
         t_f = tp[:, :, 0]
         com_sig = planar.to_planar(com_dlogs)[:, 0]
     d = pops.bitrev_axis(planar.to_planar(gen_dlogs), axis=1)  # (8, G) bit-rev
-
-    sigmas = []
-    for i in range(u_in.shape[0]):
-        h = t_f.shape[1] // 2
-        s0, s1 = t_f[:, :h], t_f[:, h:]
-        d0, d1 = d[:, :h], d[:, h:]
-        dots = planar.dot_many([(d0, s0), (d1, s1), (d1, s0), (d0, s1)])  # (8, 4)
-        sigmas += [planar.add(dots[:, 0], dots[:, 1]), dots[:, 2], dots[:, 3]]
-        x = u_in[i]
-        t_f = planar.add(s0, planar.mul_scalar(planar.sub(s1, s0), x))
-        d = planar.add(d1, planar.mul_scalar(planar.sub(d0, d1), x))
-    final_scalar = t_f[:, 0].contiguous()
-    final_dlog_exp = planar.from_mont(d[:, 0:1])[:, 0]
-    com_exp = planar.from_mont(com_sig[:, None])[:, 0]
-    sig_arr = torch.stack(sigmas) if sigmas else torch.zeros((0, 8), dtype=torch.uint32, device=dev)
-    return sig_arr, final_scalar, final_dlog_exp, com_exp
+    sig_arr, final_scalar, final_dlog_exp = _split_fold_rounds(t_f, d, u_in)
+    return sig_arr, final_scalar, final_dlog_exp, planar.from_mont(com_sig[:, None])[:, 0]
 
 
 # ---------------------------------------------------------------------------

@@ -18,12 +18,15 @@ mean something in it:
   without one (``sumcheck/transcript.py``).
 
 The JAX package's other knobs have no counterpart here:
-``use_planar_prover`` (the port has only the planar prover),
-``planar_tail_n`` (the JAX scan tails are XLA compile workarounds; the port's
-rounds run down to size 1), ``pallas_block_rows`` (the Pallas block shape;
-the CUDA kernels size their own grids), ``dot_chunk`` (the JAX lazy dot
-reduces every 2^13 terms; K3 accumulates up to 2^32 terms in one launch)
-and ``mesh_dp``/``mesh_tp`` (the multi-device prover is not ported).
+``use_planar_prover`` (the port has only the planar prover; its unchained
+stream is the (n, 8) reference path's, which ``parallel/model.py`` is held
+against), ``planar_tail_n`` (the JAX scan tails are XLA compile
+workarounds; the port's rounds run down to size 1), ``pallas_block_rows``
+(the Pallas block shape; the CUDA kernels size their own grids),
+``dot_chunk`` (the JAX lazy dot reduces every 2^13 terms; K3 accumulates up
+to 2^32 terms in one launch) and ``mesh_dp``/``mesh_tp``
+(``parallel/multihost.py:global_mesh`` takes the mesh as its arguments, dp
+0 meaning the world size over tp).
 """
 
 from __future__ import annotations

@@ -11,6 +11,7 @@ first use) or raises: there is no fallback between the two.
 | mul_scalar           | K2 fr_mul_scalar   | pallas_fr.py:_mul_scalar_kernel (:163)|
 | dot/dot_many         | K3 fr_dot          | pallas_fr.py:_dot_cols_kernel (:186)  |
 | batch_inverse(_many) | K7 fr_batch_inverse| sumcheck/lookup.py:batch_inverse (:55)|
+| collect              | K9 fr_collect      | parallel/collectives.py:reduce_mod_p (:35) |
 
 Bounds on an H100 (csrc/fr_kernels.cu has the derivation): all three are
 memory-bound, K1/K2 at 96/64 B per element, K3 at 64 B per element read
@@ -19,7 +20,9 @@ serves ``dot`` and every ``dot_many`` call in one launch each; ``plan_dot``
 sets its grid. K7 (``csrc/fr_inverse.cu``, an XLA scan on the TPU) is
 bound by its chain of dependent products: a product tree over the grid and
 one binary-GCD inverse a segment (``batch_inverse_many`` inverts several
-tensors in one call).
+tensors in one call). K9 (``csrc/fr_collect.cu``, XLA code on the TPU) turns
+the all-reduced int64 limb sums of canonical values into their canonical
+sum, one thread a value: bytes-bound.
 """
 
 from __future__ import annotations
@@ -66,8 +69,9 @@ MUL = Kernel("fr_mul", SOURCE, "zkdl_tpu/field/pallas_fr.py:156")
 MUL_SCALAR = Kernel("fr_mul_scalar", SOURCE, "zkdl_tpu/field/pallas_fr.py:163")
 DOT = Kernel("fr_dot", SOURCE, "zkdl_tpu/field/pallas_fr.py:186")
 INVERSE = Kernel("fr_batch_inverse", "zkdl_tpu_torch/csrc/fr_inverse.cu", "zkdl_tpu/sumcheck/lookup.py:55")
+COLLECT = Kernel("fr_collect", "zkdl_tpu_torch/csrc/fr_collect.cu", "zkdl_tpu/parallel/collectives.py:35")
 FR_KERNELS = (MUL, MUL_SCALAR, DOT)  # the MLP's paths run these three
-KERNELS = (*FR_KERNELS, INVERSE)
+KERNELS = (*FR_KERNELS, INVERSE, COLLECT)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_longlong
@@ -92,6 +96,15 @@ def _inverse_lib() -> ctypes.CDLL:
         lib.zk_fr_batch_inverse.restype = ctypes.c_int
         lib.zk_fr_batch_inverse_scratch.argtypes = [_P, ctypes.c_int]
         lib.zk_fr_batch_inverse_scratch.restype = _I
+        lib._zk_typed = True
+    return lib
+
+
+def _collect_lib() -> ctypes.CDLL:
+    lib = build.load("fr_collect")
+    if not getattr(lib, "_zk_typed", False):
+        lib.zk_fr_collect.argtypes = [_P, _P, _I, _P, ctypes.c_int]
+        lib.zk_fr_collect.restype = ctypes.c_int
         lib._zk_typed = True
     return lib
 
@@ -456,3 +469,33 @@ def batch_inverse(x: torch.Tensor) -> torch.Tensor:
     takes them nonzero): batch_inverse_many of one segment. A zero input
     makes every output zero, as in the JAX function."""
     return batch_inverse_many([x])[0]
+
+
+# ---------------------------------------------------------------------------
+# K9: canonical cross-rank sums
+# ---------------------------------------------------------------------------
+
+def collect_plain(sums: torch.Tensor) -> torch.Tensor:
+    """(k, 8) int64 limb sums -> (k, 8) uint32 canonical values, plain PyTorch."""
+    return mp.u32(mp.reduce_limb_sums(SPEC, sums.transpose(0, 1))).transpose(0, 1).contiguous()
+
+
+def collect(sums: torch.Tensor) -> torch.Tensor:
+    """The canonical sums mod p of k Fr values added limb by limb across at
+    most 255 ranks (S < 2^8 p: csrc/fr_collect.cu's nine words and eight
+    subtractions): (k, 8) int64 limb sums (an all-reduce's output, each <
+    2^40) -> (k, 8) uint32. K9 on a CUDA tensor, the plain version on a CPU
+    one."""
+    if sums.dtype != torch.int64 or sums.dim() != 2 or sums.shape[1] != N_LIMBS:
+        raise ValueError(f"collect: expected int64 (k, 8) limb sums, got {sums.dtype} {tuple(sums.shape)}")
+    if not _on_cuda(sums):
+        return collect_plain(sums)
+    s = sums.contiguous()
+    out = torch.empty(s.shape, dtype=torch.uint32, device=s.device)
+    if s.shape[0]:
+        idx = s.device.index
+        rc = _collect_lib().zk_fr_collect(s.data_ptr(), out.data_ptr(), s.shape[0],
+                                          torch._C._cuda_getCurrentRawStream(idx), idx)
+        _check(rc, "fr_collect")
+        COLLECT.launches += 1
+    return out

@@ -277,6 +277,27 @@ def reduce_digit_sums(spec: FieldSpec, cols: torch.Tensor, lift) -> torch.Tensor
     return mod_add(spec.P_limbs, low, lift(hi))
 
 
+def reduce_limb_sums(spec: FieldSpec, sums: torch.Tensor) -> torch.Tensor:
+    """(L, ...) non-negative int64 limb sums of a value S = sum_i sums[i]
+    2^(32 i) < 2^8 p (the limbs of at most 255 canonical values added limb
+    by limb, each sum < 2^40) -> (L, ...) int64 canonical S mod p: carried
+    into L + 1 32-bit words, then p 2^j subtracted where it fits, j = 7 ... 0
+    (zkdl_tpu/parallel/collectives.py:reduce_mod_p). The plain version of
+    K9 (csrc/fr_collect.cu)."""
+    L = spec.n_limbs
+    words = []
+    carry = torch.zeros_like(sums[0])
+    for i in range(L):
+        v = sums[i] + carry
+        words.append(v & M32)
+        carry = v >> 32
+    v = torch.stack(words + [carry])
+    for j in range(7, -1, -1):
+        d, borrow = raw_sub(v, const(limbs_from_int(spec.p << j, L + 1), v))
+        v = torch.where(borrow.bool(), v, d)
+    return v[:L]
+
+
 @functools.lru_cache(maxsize=None)
 def _toeplitz(digits: tuple, n_rows: int, device: torch.device) -> torch.Tensor:
     """float64 (n_rows, D): row k holds the constant's digit k - i in column

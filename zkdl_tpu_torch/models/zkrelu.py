@@ -1,7 +1,8 @@
 """zkReLU: quantized ReLU with compact auxiliary bit witnesses + its prover.
 
 Counterpart of ``zkdl_tpu/models/zkrelu.py``: the width constants (:43-46),
-``_width_consts``/``_split_mag`` (:81-118), ``forward_compact`` (:153-180),
+``_width_consts``/``_split_mag`` (:81-118), ``forward`` (:121-149, the
+expanded aux of the (n, 8) reference path), ``forward_compact`` (:153-180),
 ``ZkReluProof`` (:258-306), ``_layout_body``/``_claims_body`` (:352-394),
 ``prove_planar`` in grouped and chained modes (:419-507) and its
 round-interleaved schedule ``_prove_planar_interleaved`` (:510-602), the
@@ -93,6 +94,17 @@ def forward_compact(X: torch.Tensor):
         "rem_bits16": mp.u32(rem_mag | (rem_sign << (R - 1))),
     }
     return planar.from_planar(Zp).contiguous(), aux
+
+
+def forward(X: torch.Tensor):
+    """X: (n, 8) Montgomery. Returns (Z (n, 8), aux) with the expanded
+    Montgomery 0/1 witnesses of the (n, 8) reference path
+    (zkrelu.py:forward): {"sign": (n, 8), "mag_bin": (n*Q, 8), "rem_bin":
+    (n*R, 8)}, bit k of element j at j*Q + k (j*R + k). Z is
+    forward_compact's."""
+    Z, compact = forward_compact(X)
+    sign, mag_bin, rem_bin = _expand_aux(compact["sign_bits"], compact["mag"], compact["rem_bits16"], Q, R)
+    return Z, {"sign": sign, "mag_bin": mag_bin, "rem_bin": rem_bin}
 
 
 @dataclasses.dataclass
