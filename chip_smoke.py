@@ -18,6 +18,8 @@ builds and runs.
     python3 chip_smoke.py --sharded --ranks N --backend nccl|gloo
                                         # phase 1 and phase 9 on N ranks: one card a rank with
                                         # NCCL (N cards), or every rank on card 0 with gloo
+    python3 chip_smoke.py --tower       # phase 1, K10-K13 against plain with their times, and
+                                        # phase 10 alone (its attention block built for its scores)
 
 `--comb`, `--var-times`, `--k7-times` and `--glv-times` time K4 (and K5, K6;
 K7; K8) on the same seeded inputs in any checkout of the port they are copied
@@ -135,6 +137,26 @@ Phases (each prints its own lines; any failure exits nonzero):
      the canonical cross-rank Fr sum) bit for bit against its plain version
      on sums of n copies of p - 1, zeros and random values, n = 1 to 255,
      at 1 to 4097 values, and times it at a sharded sumcheck's width
+ 10. (after phase 7) the path of the last kernels, every count set to 0
+     first: a forward and an inverse NTT of 2^20 values and poly_mul of two
+     2^19-coefficient polynomials (K10, its product held at a random point
+     on the host); g2.msm at 4096 and 18,432 points (K11, K12), each sum
+     equal to the host's in affine form; the windowed G1 scalar
+     multiplication at the verify's MSM shape (K13), bit-equal to phase 2's
+     plain run on the same inputs; the cheap softmax (models/zkattention.py:
+     softmax_aux, softmax_prove, softmax_verify) on phase 7's scores at seq
+     128, d 128: card proof = CPU proof, verified, three tampered copies
+     rejected with the JAX verifier's reasons. Phase 2 also holds K10
+     (fr_ntt) bit for bit against plain at n = 1 ... 4096 and 2^20, forward
+     and inverse, on zeros, p - 1 and random values, K11 (g2_scalar_mul) and
+     K12 (g2_add, g2_sum's levels) on G2's edge points (P, Q, R, O,
+     P + (-P), 2P, P + Q, 2Q, off the r-torsion subgroup) and scalars (0, 1,
+     2, 5, r - 1, r, 2^256 - 1) at 1 to 18,432 points, K12 also on the
+     first tree level of g2.msm at 4096 and 18,432 points, K13
+     (g1_scalar_mul_windowed) on K5's edges at 1 to 4097 points and at the
+     verify's MSM shape (18,432 points); and times K10 at 2^20, K11/K12
+     through g2.msm at 4096 and 18,432 points, K13 at the verify's MSM shape
+     beside K8 and K5
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -168,6 +190,10 @@ FP_LEVELS_PER_WINDOW = 5  # add_mixed's levels of dependent products (K4 runs ea
 G1_ADD_IMAD = 11 * FP_MUL_IMAD + 5 * FP_SQR_IMAD  # add-2007-bl, generic case (K5, K6)
 G1_DBL_IMAD = 2 * FP_MUL_IMAD + 5 * FP_SQR_IMAD  # dbl-2009-l (K5)
 G1_COFACTOR = 0x396C8C005555E1568C00AAAB0000AAAB  # the NUMS generators' cofactor clearing (K5)
+FR_R = 0x73EDA753299D7D483339D80809A1D80553BDA402FFFE5BFEFFFFFFFF00000001
+# K5's and K13's edge scalars: r runs the generic formula to z = 0 at G's
+# bit 254 (out = -acc there), 2^256 - r adds equal points at G's bit 255
+G1_EDGE_SCALARS = (0, 1, FR_R - 1, G1_COFACTOR, (1 << 256) - 1, FR_R, (1 << 256) - FR_R)
 # K5/K6 launch sizes held against plain: one block or warp, partial warps
 # (K5's layouts hold 1, 4 or 16 points a warp), tails, a NUMS vector, K6's
 # largest tile (4096 pairs) and one more
@@ -537,6 +563,35 @@ def add_bits_bound(bits, gen: int) -> tuple[float, str]:
     return bound_ms(bits.shape[0] * 4 + gen * 3 * 48 + pairs.shape[0] * 3 * 48, both * G1_ADD_IMAD)
 
 
+def g1_edge_points(dev, R):
+    """K5's and K13's edge points: G, a NUMS candidate, the identity and
+    (r^2, -r^3, 0), the generic formula's p + (-p) for p = R[0]."""
+    import torch
+    from zkdl_tpu_torch.commit import pedersen
+    from zkdl_tpu_torch.curve import convert, g1, host_g1
+
+    G = convert.jac_to_device([host_g1.GENERATOR], dev)
+    cand = convert.jac_to_device([host_g1.JacPoint(x, y, 1) for _, x, y in pedersen._nums_affine(1)], dev)
+    r0 = _points(R, torch.tensor([0], device=dev))
+    C = g1.add_plain(r0, g1.neg(r0))
+    if not (bool(g1.is_identity(C)[0]) and int(C.x.to(torch.int64).sum()) > 0):
+        raise AssertionError("p + (-p) did not give (r^2, -r^3, 0)")
+    return G, cand, g1.identity((1,), dev), C
+
+
+def g1_scalar_edge_set(dev, R, raw, n: int):
+    """n points and scalars: every one of G1_EDGE_SCALARS on every edge
+    point at the head, then R's points under raw's scalars (below r)."""
+    import torch
+
+    edge_points = g1_edge_points(dev, R)
+    pe = _cat_points(*[pt for pt in edge_points for _ in G1_EDGE_SCALARS])
+    se = torch.stack([scalar_words(x) for _ in edge_points for x in G1_EDGE_SCALARS]).to(dev)
+    k = pe.x.shape[0]
+    pts = _cat_points(pe, _points(R, torch.arange(n - k, device=dev)))
+    return pts, torch.cat([se, torch.from_numpy(raw[n: 2 * n - k]).to(dev)])
+
+
 def phase_var(dev, records: dict) -> None:
     """K5 and K6 against their plain versions on the card, bit for bit: the
     edge inputs (K6: O + O, O + q, p + O, p + p, p + (-p) and the resulting
@@ -558,13 +613,8 @@ def phase_var(dev, records: dict) -> None:
     raw = np.random.default_rng(9).integers(0, 1 << 32, size=(2 * n, 8), dtype=np.uint32)
     raw[:, 7] %= np.uint32(fr.P_TOP_LIMB)
     R = g1.generator_pow(torch.from_numpy(raw).to(dev))  # random points (K4, held against plain in phase 2)
-    G = convert.jac_to_device([host_g1.GENERATOR], dev)
-    cand = convert.jac_to_device([host_g1.JacPoint(x, y, 1) for _, x, y in pedersen._nums_affine(1)], dev)
-    O = g1.identity((1,), dev)
+    G, cand, O, C = g1_edge_points(dev, R)  # C = R[0] + (-R[0]): z = 0, x = r^2, y = -r^3
     r0, r1 = _points(R, torch.tensor([0], device=dev)), _points(R, torch.tensor([1], device=dev))
-    C = g1.add_plain(r0, g1.neg(r0))  # p + (-p): z = 0, x = r^2, y = -r^3
-    if not (bool(g1.is_identity(C)[0]) and int(C.x.to(torch.int64).sum()) > 0):
-        raise AssertionError("p + (-p) did not give (r^2, -r^3, 0)")
 
     # K6: edge pairs at the head, random pairs after
     ep = _cat_points(O, O, r0, r0, r0, C, r1, C, G)
@@ -597,17 +647,10 @@ def phase_var(dev, records: dict) -> None:
     # K5: every edge scalar on every edge point at the head, random after;
     # r runs the generic formula to z = 0 at G's bit 254 (out = -acc there)
     # and 2^256 - r adds equal points at G's bit 255 (double)
-    top = (1 << 256) - 1
-    edge_scalars = [0, 1, fr.P_INT - 1, G1_COFACTOR, top, fr.P_INT, (1 << 256) - fr.P_INT]
-    edge_points = [G, cand, O, C]
-    pe = _cat_points(*[pt for pt in edge_points for _ in edge_scalars])
-    se = torch.stack([scalar_words(x) for _ in edge_points for x in edge_scalars]).to(dev)
-    k = pe.x.shape[0]
-    pts = _cat_points(pe, _points(R, torch.arange(n - k, device=dev)))
-    sc = torch.cat([se, torch.from_numpy(raw[n: 2 * n - k]).to(dev)])
+    pts, sc = g1_scalar_edge_set(dev, R, raw, n)
     want = g1.scalar_mul_plain(pts, sc)
     part = _points(pts, torch.arange(VAR_SIZES[-2], device=dev))
-    one = {x: g1.scalar_mul_plain(part, scalar_words(x).to(dev)) for x in edge_scalars}
+    one = {x: g1.scalar_mul_plain(part, scalar_words(x).to(dev)) for x in G1_EDGE_SCALARS}
     for form in g1.SCALAR_MUL_FORMS:
         for m in VAR_SIZES:
             idx = torch.arange(m, device=dev)
@@ -761,8 +804,8 @@ def glv_bound(pts, scal) -> tuple[float, str]:
 
 
 def windowed_bound(pts, scal) -> tuple[float, str]:
-    """The least time of the still unported g1.py:scalar_mul_windowed
-    (:187-214, 4-bit windows, 64 of them from the top) on this data: per
+    """K13's least time (g1.py:scalar_mul_windowed, :187-214, 4-bit
+    windows, 64 of them from the top) on this data: per
     point that is not the identity its table's double (t[2]) and 13
     generic adds, 4 doubles a window below the scalar's highest nonzero
     window, a generic add per nonzero digit after the first; the same
@@ -780,16 +823,20 @@ def windowed_bound(pts, scal) -> tuple[float, str]:
     return bound_ms(n * 3 * 48 * 2 + (32 if scal.dim() == 1 else n * 32), dbl * G1_DBL_IMAD + adds * G1_ADD_IMAD)
 
 
-def ntt_bound(log_n: int) -> tuple[float, str]:
-    """The least time of the still unported tensor/fft.py:_ntt_core (:72-85),
-    a forward radix-2 NTT of 2^log_n Fr values: log_n stages of n/2
-    butterflies, each one Fr product (the adds are not counted); the
-    input, the output and the stages' twiddles (n - 1 in all) moved once."""
+def ntt_bound(log_n: int, inverse: bool = False) -> tuple[float, str]:
+    """K10's least time (tensor/fft.py:_ntt_core, :71-85) for a radix-2 NTT
+    of 2^log_n Fr values: log_n stages of n/2 butterflies, one Fr product
+    each but for the n - 1 whose twiddle is w^0 = 1 (j = 0 in every block;
+    the adds are not counted); the inverse's n^-1 folded into the last
+    stage (lo n^-1 +- hi (w n^-1)), n/2 products more. The input, the
+    output and a table of n/2 twiddles (every stage's are in it) moved
+    once."""
     n = 1 << log_n
-    return bound_ms(32 * (2 * n + n - 1), log_n * (n // 2) * FR_MUL_IMAD)
+    products = log_n * (n // 2) - (n - 1) + (n // 2 if inverse else 0)
+    return bound_ms(32 * (2 * n + n // 2), products * FR_MUL_IMAD)
 
 
-NTT_LOG_N = 20  # the size at which PERF.md states _ntt_core's bound
+NTT_LOG_N = 20  # K10's main size: a transform of 2^20 values
 
 
 def glv_forms() -> dict:
@@ -1607,12 +1654,6 @@ def time_verify_scalar_muls(res: dict, records: dict) -> None:
         f"times, at {sizes} points (the row commitments' MLE fold)")
     msm = f"the verify's generator MSM of relu[1] ({msm_n} points, a scalar per point)"
     shape = time_glv(records, msm, *glv_calls[0])
-    wms, wby = windowed_bound(*glv_calls[0])
-    nms, nby = ntt_bound(NTT_LOG_N)
-    records["_to_port_bounds"] = {"scalar_mul_windowed at " + msm: {"bound_ms": wms, "bound_by": wby},
-                                  f"_ntt_core at 2^{NTT_LOG_N}": {"bound_ms": nms, "bound_by": nby}}
-    log(f"[committed] still to port: g1.py:scalar_mul_windowed on the same MSM, bound {wms:.6f} ms by {wby}; "
-        f"fft.py:_ntt_core, a forward NTT of 2^{NTT_LOG_N} values, bound {nms:.6f} ms by {nby}")
     records["g1_scalar_mul_glv"] = {**{k: shape[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
                                     "max_abs_err": max(v["max_abs_err"] for v in
                                                        records["_g1_scalar_mul_glv_shapes"].values()),
@@ -2745,6 +2786,7 @@ def phase_attention(records: dict) -> None:
     if vl["g1_scalar_mul_glv"] <= 0:
         raise AssertionError("the attention verify launched no K8")
     records["fr_batch_inverse"]["launches"] = launches["fr_batch_inverse"]
+    records["_attention_S"] = (res["trace"]["S"], res["model"].seq, res["model"].d_model)  # phase 10: cheap softmax
     t_max = int(res["trace"]["sm_wit"]["t"].max())
     log(f"[attention] the softmax witness's largest t is {t_max} (< 2^32: no value loses bits to the 32-bit "
         f"Montgomery tensors of the JAX package's convention)")
@@ -2784,6 +2826,452 @@ def fr_limbs_mont(v: int):
     from zkdl_tpu_torch.field import fr
 
     return fr.from_ints([v], mont_form=True)[0]
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the NTT (K10), G2 (K11, K12), windowed G1 (K13), the cheap softmax
+# ---------------------------------------------------------------------------
+
+NTT_CHECK_LOGS = tuple(range(13)) + (NTT_LOG_N,)  # n = 1 ... 4096 and 2^20
+G2_SIZES = (1, 2, 3, 5, 255, 256, 257, 4097, VAR_MSM_POINTS)  # K11/K12 launch sizes held against plain
+G2_PLAIN_ROWS = 256  # the plain G2 walk's rows: every edge combination, then random scalars
+G2_MSM_SIZES = (4096, VAR_MSM_POINTS)  # K11/K12 timed through g2.msm (18,432: relu[1]'s G1 MSM)
+G2_DBL_FP_MULS, G2_ADD_FP_MULS = 16, 43  # dbl-2009-l and add-2007-bl over Fp2 (an Fp2 product 3, a square 2)
+G2_POINT_BYTES = 6 * 48
+SOFTMAX_CHEAP_JAX = os.path.join("tests", "port", "fixtures", "slice14_jax.json")
+
+
+def tower_kernels() -> tuple:
+    """K10-K13, the kernels of phase 10's path."""
+    from zkdl_tpu_torch.curve import g1, g2
+    from zkdl_tpu_torch.tensor import fft
+
+    return (*fft.KERNELS, *g2.KERNELS, g1.WINDOWED)
+
+
+def port_kernels() -> tuple:
+    """Every hand-written kernel of the port, K1-K13, in the kernels line's
+    order."""
+    from zkdl_tpu_torch.curve import g1
+    from zkdl_tpu_torch.field import kernels
+
+    return (*kernels.KERNELS, *g1.KERNELS, *tower_kernels())
+
+
+def g2_host_add(a, b):
+    """a + b on the host in affine form (None the identity), on
+    y^2 = x^3 + 4(1 + u) over HostFp2."""
+    from zkdl_tpu_torch.field.fp2 import HostFp2 as F
+
+    if a is None or b is None:
+        return a if b is None else b
+    (x1, y1), (x2, y2) = a, b
+    if x1 == x2:
+        if y1 != y2 or y1 == (0, 0):
+            return None
+        lam = F.mul(F.mul((3, 0), F.sqr(x1)), F.inv(F.add(y1, y1)))
+    else:
+        lam = F.mul(F.sub(y2, y1), F.inv(F.sub(x2, x1)))
+    x3 = F.sub(F.sub(F.sqr(lam), x1), x2)
+    return x3, F.sub(F.mul(lam, F.sub(x1, x3)), y1)
+
+
+def g2_host_mul(xy, k: int):
+    """k xy on the host in affine form for any integer k >= 0 (MSB-first
+    double-and-add)."""
+    acc = None
+    for bit in bin(k)[2:] if k else "":
+        acc = g2_host_add(acc, acc)
+        if bit == "1":
+            acc = g2_host_add(acc, xy)
+    return acc
+
+
+def g2_bound(pts, scal) -> tuple[float, str]:
+    """K11's least time on this data: points and scalars read and the
+    products written once, against the multiply-adds of its double-and-add
+    (top(k) doubles and popcount(k) - 1 generic adds a scalar k, the first
+    add taking the point as it is), an Fp product each FP_MUL_IMAD."""
+    import torch
+    from zkdl_tpu_torch.curve import g1
+
+    n = pts.x.c0.shape[0]
+    bits = g1._scalar_bits((scal.reshape(-1, 8).expand(n, 8) if scal.dim() == 1 else scal).cpu())
+    top = torch.where(bits, torch.arange(256), -1).max(1).values
+    dbl = int(top.clamp(min=0).sum().item())
+    adds = int((bits.sum(1) - 1).clamp(min=0).sum().item())
+    return bound_ms(n * (2 * G2_POINT_BYTES + 32),
+                    (dbl * G2_DBL_FP_MULS + adds * G2_ADD_FP_MULS) * FP_MUL_IMAD)
+
+
+def g2_add_bound(pairs: int) -> tuple[float, str]:
+    """K12's least time on generic pairs: two points read and one written a
+    pair, against a generic add's products."""
+    return bound_ms(pairs * 3 * G2_POINT_BYTES, pairs * G2_ADD_FP_MULS * FP_MUL_IMAD)
+
+
+def g2_slice(p, idx):
+    """The points of p at a slice or an integer index tensor (uint32 has no
+    indexing on the card: a tensor index gathers on the int32 view)."""
+    from zkdl_tpu_torch.curve import g2
+    from zkdl_tpu_torch.field import mp
+
+    if isinstance(idx, slice):
+        return g2.G2Jac(*(g2.Fp2(f.c0[idx], f.c1[idx]) for f in p))
+    return g2.G2Jac(*(g2.Fp2(mp.take(f.c0, idx, 0), mp.take(f.c1, idx, 0)) for f in p))
+
+
+def g2_cat(*ps):
+    import torch
+    from zkdl_tpu_torch.curve import g2
+
+    return g2.G2Jac(*(g2.Fp2(torch.cat([getattr(p, c).c0 for p in ps]), torch.cat([getattr(p, c).c1 for p in ps]))
+                      for c in "xyz"))
+
+
+def g2_words(p):
+    import torch
+
+    return torch.cat([torch.cat([f.c0, f.c1], -1) for f in p], -1)
+
+
+def g2_edge_points(dev):
+    """[P, Q, R, O, P + (-P), 2P, P + Q, 2Q] for P, Q, R = find_point_host(3,
+    11, 29) (off the r-torsion subgroup), built by the plain formulas."""
+    from zkdl_tpu_torch.curve import g2
+
+    P, Q, R = (g2.jac_from_host(g2.find_point_host(s), (1,)) for s in (3, 11, 29))
+    E = g2_cat(P, Q, R, g2.identity((1,)), g2.add(P, g2.neg(P)), g2.double(P), g2.add(P, Q), g2.double(Q))
+    return g2.G2Jac(*(g2.Fp2(f.c0.to(dev), f.c1.to(dev)) for f in E))
+
+
+def random_below_r(rng, m: int, dev):
+    import torch
+    from zkdl_tpu_torch.field import fr
+
+    raw = rng.integers(0, 1 << 32, size=(m, 8), dtype=np.uint32)
+    raw[:, 7] %= np.uint32(fr.P_TOP_LIMB)
+    return torch.from_numpy(raw).to(dev)
+
+
+def g2_msm_inputs(dev, m: int):
+    """m points cycling through the edge batch's six points that are not
+    the identity, random scalars below r (seeded by m)."""
+    import torch
+
+    E = g2_edge_points(dev)
+    live = torch.tensor([0, 1, 2, 5, 6, 7], device=dev)
+    return g2_slice(E, live[torch.arange(m, device=dev) % 6]), random_below_r(np.random.default_rng(m), m, dev)
+
+
+def phase_tower_kernels(records: dict) -> None:
+    """Phase 2's rows of K10-K13, each against its plain version on the card,
+    bit for bit, and timed beside its bound:
+    K10 (fr_ntt) at n = 1 ... 4096 and 2^20, forward and inverse, on zeros,
+    every value p - 1 and random values, intt(ntt(x)) == x, timed at 2^20;
+    K11 (g2_scalar_mul) on every edge scalar (0, 1, 2, 5, r - 1, r,
+    2^256 - 1, random) on every edge point (P, Q, R, O, P + (-P), 2P, P + Q,
+    2Q) and random scalars after, at the sizes of G2_SIZES up to phase 10's
+    18,432 points (plain on 256 rows; larger launches tile them), and one
+    scalar for all; K12 (g2_add) on p + p, p + (-p), p + O, O + q, O + O
+    and distinct points at those sizes, and g2_sum's tree at each against
+    the CPU's; both timed through g2.msm at 4096 and 18,432 points, K12
+    held against plain on each MSM's first tree level; K13
+    (g1_scalar_mul_windowed) on K5's edge points and scalars at VAR_SIZES,
+    and at the verify's MSM shape (glv_time_sets, phase 10's launch)
+    against plain and timed beside K8 and K5 on the same inputs."""
+    import torch
+    from zkdl_tpu_torch.curve import g1, g2
+    from zkdl_tpu_torch.field import fr, mp
+    from zkdl_tpu_torch.tensor import fft
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(14)
+    t0 = time.perf_counter()
+
+    # K10
+    checked = 0
+    for log_n in NTT_CHECK_LOGS:
+        n = 1 << log_n
+        for kind in ("zeros", "p-1", "random"):
+            if kind == "random":
+                x = random_below_r(rng, n, dev)
+            else:
+                x = torch.from_numpy(np.tile(fr.from_int(0 if kind == "zeros" else fr.P_INT - 1), (n, 1))).to(dev)
+            for inverse in (False, True):
+                same(f"fr_ntt n=2^{log_n} {kind} {'inverse' if inverse else 'forward'}",
+                     fft._ntt_core(x, log_n, inverse), fft.ntt_plain(x, log_n, inverse))
+                checked += 1
+            if kind == "random" and not torch.equal(fft.intt(fft.ntt(x)), x):
+                raise AssertionError(f"fr_ntt: intt(ntt(x)) != x at n=2^{log_n}")
+    x = random_below_r(rng, 1 << NTT_LOG_N, dev)
+    shapes = records["_fr_ntt_shapes"] = {}
+    for inverse in (False, True):
+        want, pms = plain_once(lambda: fft.ntt_plain(x, NTT_LOG_N, inverse))
+        err = max_abs_err(fft._ntt_core(x, NTT_LOG_N, inverse), want)
+        ms = cuda_ms(lambda: fft._ntt_core(x, NTT_LOG_N, inverse), 20)
+        bms, by = ntt_bound(NTT_LOG_N, inverse)
+        shapes["inverse" if inverse else "forward"] = {"n": 1 << NTT_LOG_N, "ms": ms, "plain_ms": pms,
+                                                        "bound_ms": bms, "bound_by": by, "max_abs_err": err}
+        log(f"[kernels] fr_ntt (K10) {'inverse' if inverse else 'forward'} at 2^{NTT_LOG_N}: {ms:.4f} ms (plain "
+            f"{pms:.1f} ms, bound {bms:.4f} ms by {by}, {100 * bms / ms:.1f}% of it; no PyTorch call computes an Fr "
+            "NTT)")
+    records["fr_ntt"] = {**{k: v for k, v in shapes["forward"].items() if k != "n"}, "library_ms": None}
+    log(f"[kernels] fr_ntt bit-equal to plain on {checked} transforms (n = 2^0 ... 2^12 and 2^{NTT_LOG_N}, forward "
+        "and inverse, zeros, every value p - 1, random values); intt(ntt(x)) == x at each size")
+
+    # K11 and K12 on the edges
+    E = g2_edge_points(dev)
+    edge_scalars = [0, 1, 2, 5, fr.P_INT - 1, fr.P_INT, (1 << 256) - 1]
+    k = len(edge_scalars) + 1  # and one random scalar
+    pidx = torch.arange(G2_PLAIN_ROWS) % 8
+    sc = random_below_r(rng, G2_PLAIN_ROWS, "cpu")
+    for i in range(8 * k):
+        if i % k < len(edge_scalars):
+            sc[i] = scalar_words(edge_scalars[i % k])
+    pidx[: 8 * k] = torch.arange(8 * k) // k
+    pidx, sc = pidx.to(dev), sc.to(dev)
+    base = g2_slice(E, pidx)
+    want_edges, pms_edges = plain_once(lambda: g2.scalar_mul_plain(base, sc))
+    big = max(G2_SIZES)
+    rows = torch.arange(big, device=dev) % G2_PLAIN_ROWS
+    pts_big, sc_big, want_big = g2_slice(base, rows), mp.take(sc, rows, 0), g2_words(g2_slice(want_edges, rows))
+    for m in G2_SIZES:
+        same(f"g2_scalar_mul n={m}", g2_words(g2.scalar_mul(g2_slice(pts_big, slice(0, m)), sc_big[:m])),
+             want_big[:m])
+    small = scalar_words(0x1234567).to(dev)
+    same("g2_scalar_mul one scalar for all", g2_words(g2.scalar_mul(base, small)),
+         g2_words(g2.scalar_mul_plain(base, small)))
+    qE = g2_cat(E, g2.neg(E), g2_slice(E, torch.roll(torch.arange(8, device=dev), 1)), g2.identity((8,), dev))
+    pE = g2_cat(E, E, E, E)
+    radd = torch.arange(big, device=dev) % 32
+    pa, qa = g2_slice(pE, radd), g2_slice(qE, radd)
+    want_add = g2_words(g2.add_plain(pa, qa))
+    for m in G2_SIZES:
+        same(f"g2_add n={m}", g2_words(g2.add(g2_slice(pa, slice(0, m)), g2_slice(qa, slice(0, m)))), want_add[:m])
+        part = g2_slice(pts_big, slice(0, m))
+        with_plain = g2.G2Jac(*(g2.Fp2(f.c0.cpu(), f.c1.cpu()) for f in part))
+        same(f"g2_sum n={m}", g2_words(g2.g2_sum(part)).cpu(), g2_words(g2.g2_sum(with_plain)))
+    log(f"[kernels] g2_scalar_mul (K11) bit-equal to plain at n = {', '.join(map(str, G2_SIZES))}: every scalar of "
+        "0, 1, 2, 5, r-1, r, 2^256-1 and a random one on each of P, Q, R, O, P+(-P), 2P, P+Q, 2Q, then random "
+        f"scalars ({G2_PLAIN_ROWS} plain rows, tiled; plain {pms_edges:.0f} ms), and one scalar for all; g2_add (K12) "
+        "on p+p, p+(-p), p+O, O+q, O+O and distinct points, and g2_sum's tree (CPU plain) at each size")
+
+    # K11 and K12 timed through g2.msm; K12 held against plain on each MSM's first tree level
+    g2_shapes = records["_g2_shapes"] = {}
+    for m in G2_MSM_SIZES:
+        pts, scal = g2_msm_inputs(dev, m)
+        smul = g2.scalar_mul(pts, scal)
+        ms = cuda_ms(lambda: g2.scalar_mul(pts, scal), 3)
+        bms, by = g2_bound(pts, scal)
+        level = g2.pack(smul)[: 2 * (m // 2)].contiguous()
+        pa, qa = g2.unpack(level[0::2]), g2.unpack(level[1::2])
+        want_l, apms = plain_once(lambda: g2.add_plain(pa, qa))
+        aerr = max_abs_err(g2_words(g2.unpack(g2.sum_level(level))), g2_words(want_l))
+        if aerr:
+            raise AssertionError(f"g2_add at the first tree level of {m} points: max |err| {aerr}")
+        ams = cuda_ms(lambda: g2.sum_level(level), 10)
+        abms, aby = g2_add_bound(m // 2)
+        total = cuda_ms(lambda: g2.msm(pts, scal), 2)
+        g2_shapes[f"{m} points"] = {"scalar_mul_ms": ms, "bound_ms": bms, "bound_by": by, "add_level_ms": ams,
+                                    "add_level_plain_ms": apms, "add_level_bound_ms": abms,
+                                    "add_level_bound_by": aby, "msm_ms": total}
+        log(f"[kernels] g2.msm at {m} points, random scalars below r: {total:.3f} ms; g2_scalar_mul {ms:.3f} ms (bound "
+            f"{bms:.4f} ms by {by}, {100 * bms / ms:.1f}%), g2_add at its first tree level ({m // 2} pairs) "
+            f"{ams:.4f} ms (plain {apms:.1f} ms, bound {abms:.5f} ms by {aby}), bit-equal to plain; no PyTorch call "
+            "computes a G2 product")
+        if m == VAR_MSM_POINTS:
+            records["g2_add"] = {"ms": ams, "plain_ms": apms, "bound_ms": abms, "bound_by": aby, "max_abs_err": aerr,
+                                 "library_ms": None, "shape": f"the first tree level of g2.msm at {m} points"}
+    # K11's record: the check set (its plain run above)
+    ms = cuda_ms(lambda: g2.scalar_mul(base, sc), 5)
+    bms, by = g2_bound(base, sc)
+    records["g2_scalar_mul"] = {"ms": ms, "plain_ms": pms_edges, "bound_ms": bms, "bound_by": by,
+                                "max_abs_err": max_abs_err(g2_words(g2.scalar_mul(base, sc)), g2_words(want_edges)),
+                                "library_ms": None, "shape": f"the {G2_PLAIN_ROWS}-point check set"}
+    log(f"[kernels] on the {G2_PLAIN_ROWS}-point check set: g2_scalar_mul {ms:.3f} ms (plain {pms_edges:.0f} ms, "
+        f"bound {bms:.5f} ms by {by}); bit-equal to plain")
+
+    # K13 on K5's edges
+    n = max(VAR_SIZES)
+    raw = np.random.default_rng(13).integers(0, 1 << 32, size=(2 * n, 8), dtype=np.uint32)
+    raw[:, 7] %= np.uint32(fr.P_TOP_LIMB)
+    pts, scw = g1_scalar_edge_set(dev, g1.generator_pow(torch.from_numpy(raw).to(dev)), raw, n)
+    want, pms = plain_once(lambda: g1.scalar_mul_windowed_plain(pts, scw))
+    for m in VAR_SIZES:
+        idx = torch.arange(m, device=dev)
+        same_points(f"g1_scalar_mul_windowed n={m}", g1.scalar_mul_windowed(_points(pts, idx), scw[:m]),
+                    _points(want, idx))
+    ms = cuda_ms(lambda: g1.scalar_mul_windowed(pts, scw), 10)
+    bms, by = windowed_bound(pts, scw)
+    records["_g1_scalar_mul_windowed_edges"] = {"ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+                                                "shape": f"the {n}-point check set"}
+    log(f"[kernels] g1_scalar_mul_windowed (K13) bit-equal to plain at n = {', '.join(map(str, VAR_SIZES))}, each "
+        "set headed by the scalars 0, 1, r-1, the cofactor, 2^256-1, r and 2^256-r on G, a NUMS candidate, O and "
+        f"(r^2, -r^3, 0), random after; at {n}: {ms:.4f} ms (plain {pms:.0f} ms, bound {bms:.4f} ms by {by})")
+    # K13's record: phase 10's shape, held against plain there (phase 10 compares its own launch with this)
+    label, (pts, scal) = next(iter(glv_time_sets(dev).items()))
+    want, pms = plain_once(lambda: g1.scalar_mul_windowed_plain(pts, scal))
+    err = point_err(g1.scalar_mul_windowed(pts, scal), want)
+    if err:
+        raise AssertionError(f"g1_scalar_mul_windowed at {label}: max |err| {err}")
+    records["_g1_scalar_mul_windowed_want"] = want
+    ms = cuda_ms(lambda: g1.scalar_mul_windowed(pts, scal), 10)
+    k8 = cuda_ms(lambda: g1.scalar_mul_glv(pts, scal), 10)
+    k5 = cuda_ms(lambda: g1.scalar_mul(pts, scal), 3)
+    bms, by = windowed_bound(pts, scal)
+    records["g1_scalar_mul_windowed"] = {"ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+                                         "max_abs_err": err, "library_ms": None, "shape": label}
+    records["_g1_scalar_mul_windowed_msm"] = {"k8_ms": k8, "k5_ms": k5, "shape": label}  # beside K13's record
+    log(f"[kernels] g1_scalar_mul_windowed at {label}: {ms:.4f} ms (plain {pms:.0f} ms, bit-equal; bound {bms:.4f} "
+        f"ms by {by}, {100 * bms / ms:.1f}%); on the same inputs K8 {k8:.4f} ms, K5 {k5:.4f} ms")
+    log(f"[time] K10-K13 against plain: {time.perf_counter() - t0:.1f}s")
+
+
+def attention_scores(dev):
+    """bench.run_attention's block (seq 128, d 128, default_rng(0) weights,
+    PRNGKey(0)) and its scores S from one forward."""
+    from zkdl_tpu_torch import bench
+    from zkdl_tpu_torch.models import quantize, zkattention
+    from zkdl_tpu_torch.utils import prng
+
+    seq, d = bench.ATTENTION_SEQ, bench.ATTENTION_D
+    rng = np.random.default_rng(0)
+    ws = [(rng.standard_normal((d, d)) * 0.2).astype(np.float32) for _ in range(4)]
+    attn = zkattention.ZkAttention.from_float(seq, *ws, prng.PRNGKey(0), dev)
+    X = bench.to_mont_rows(quantize.load_input(rng.standard_normal((seq, d)).astype(np.float32), dev))
+    return attn.forward(X)[1]["S"], seq, d
+
+
+def phase_tower(records: dict, scores=None) -> None:
+    """Phase 10, the path of K10-K13, every count set to 0 first: a forward
+    and an inverse NTT of 2^20 values and poly_mul of two 2^19-coefficient
+    polynomials (held at a random point against the product of the
+    factors' values, on the host); g2.msm at 4096 and 18,432 points, each
+    sum equal in affine form to the host's sum over its six distinct points;
+    scalar_mul_windowed at the verify's MSM shape, bit-equal to phase 2's
+    plain run on the same inputs; the cheap softmax at the
+    attention block's size on its scores S (phase 7's block): softmax_aux,
+    softmax_prove under FiatShamir on the card and on the CPU (every array
+    equal), softmax_verify, and three tampered copies rejected with the JAX
+    verifier's reasons (tests/port/fixtures/slice14_jax.json). scores: (S,
+    seq, d_model) of phase 7's block, or None to build the block here."""
+    import dataclasses
+
+    import torch
+    from zkdl_tpu_torch.curve import g1, g2
+    from zkdl_tpu_torch.field import fr, kernels
+    from zkdl_tpu_torch.models import zkattention as za
+    from zkdl_tpu_torch.sumcheck.transcript import FiatShamir
+    from zkdl_tpu_torch.tensor import fft
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    path = (*kernels.FR_KERNELS, *tower_kernels())
+    for kn in path:
+        kn.launches = 0
+    out = records["_tower"] = {}
+    rng = np.random.default_rng(10)
+    x = random_below_r(rng, 1 << NTT_LOG_N, dev)
+    y = fft.ntt(x)
+    if not torch.equal(fft.intt(y), x):
+        raise AssertionError("intt(ntt(x)) != x at 2^20")
+    half = 1 << (NTT_LOG_N - 1)
+    a, b = random_below_r(rng, half, dev), random_below_r(rng, half, dev)
+    t1 = time.perf_counter()
+    c = fft.poly_mul(a, b)
+    torch.cuda.synchronize()
+    out["poly_mul_s"] = time.perf_counter() - t1
+    z = int(rng.integers(2, 1 << 62))
+
+    def at_z(t) -> int:  # Horner over the Montgomery coefficients' values
+        acc = 0
+        for v in reversed(fr.to_ints(t.cpu().numpy(), mont_form=True)):
+            acc = (acc * z + v) % fr.P_INT
+        return acc
+
+    if c.shape[0] != 1 << NTT_LOG_N or at_z(c) != at_z(a) * at_z(b) % fr.P_INT:
+        raise AssertionError("poly_mul of two 2^19-coefficient polynomials is not their product at a random point")
+    log(f"[tower] ntt and intt at 2^{NTT_LOG_N} (intt(ntt(x)) == x); poly_mul of two 2^19-coefficient polynomials "
+        f"(a 2^20 transform) in {out['poly_mul_s']:.4f}s, its value at a random point the product of theirs")
+    for m in G2_MSM_SIZES:
+        pts, scal = g2_msm_inputs(dev, m)
+        t1 = time.perf_counter()
+        s = g2.msm(pts, scal)
+        torch.cuda.synchronize()
+        out[f"g2_msm_{m}_s"] = time.perf_counter() - t1
+        # point i is the edge batch's live point i mod 6: the sum is sum_j (sum_{i = j mod 6} k_i) P_j, the
+        # coefficients taken as integers (the points lie off the r-torsion subgroup)
+        ks = [sum(int(w) << (32 * j) for j, w in enumerate(row)) for row in scal.cpu().numpy().tolist()]
+        want = None
+        for j in range(6):
+            pj = g2.to_affine_host(g2.G2Jac(*(g2.Fp2(f.c0[j].cpu(), f.c1[j].cpu()) for f in pts)))
+            want = g2_host_add(want, g2_host_mul(pj, sum(ks[j::6])))
+        got = g2.to_affine_host(g2.G2Jac(*(g2.Fp2(f.c0[0].cpu(), f.c1[0].cpu()) for f in s)))
+        if got is None or got != want:
+            raise AssertionError(f"g2.msm at {m} points is not sum_j c_j P_j on the host")
+        log(f"[tower] g2.msm at {m} points: {out[f'g2_msm_{m}_s']:.4f}s, equal in affine form to the host's "
+            "sum_j c_j P_j over its six distinct points")
+    label, (pts, scal) = next(iter(glv_time_sets(dev).items()))
+    w = g1.scalar_mul_windowed(pts, scal)
+    same_points(f"g1_scalar_mul_windowed at {label}", w, records.pop("_g1_scalar_mul_windowed_want"))
+    log(f"[tower] scalar_mul_windowed at {label}: bit-equal to plain (phase 2's run on these inputs)")
+
+    # the cheap softmax at seq 128, d 128
+    S, seq, d = scores or attention_scores(dev)
+    t1 = time.perf_counter()
+    P, q = za.softmax_aux(S, seq, seq, d)
+    P_cpu, q_cpu = za.softmax_aux(S.cpu(), seq, seq, d)
+    flips = int((q != q_cpu).sum())
+    bits = za.p_range_bits(P)
+    t2 = time.perf_counter()
+    proof = za.softmax_prove(P, seq, seq, FiatShamir())
+    torch.cuda.synchronize()
+    prove_s = time.perf_counter() - t2
+    ok = za.softmax_verify(proof)
+    if ok != (True, ""):
+        raise AssertionError(f"softmax_verify rejected the card's proof: {ok}")
+    cpu = za.softmax_prove(P.cpu(), seq, seq, FiatShamir())
+    for f in dataclasses.fields(proof):
+        if not torch.equal(getattr(proof, f.name).cpu(), getattr(cpu, f.name)):
+            raise AssertionError(f"cheap softmax proof: {f.name} differs between the card and the CPU")
+    with open(SOFTMAX_CHEAP_JAX) as fh:
+        jax_meta = json.load(fh)["recorded"]
+    bad = dict(bin_poly=proof.bin_polys.clone(), ip_finals=proof.ip_finals.clone())
+    for arr in bad.values():
+        arr.view(torch.int32).reshape(-1)[0] ^= 1
+    q_off = torch.from_numpy(q.astype(np.int64).reshape(-1)).to(dev)
+    q_off[0] += 1
+    from zkdl_tpu_torch.tensor import fr_ops
+
+    tampers = {
+        "bin_poly": dataclasses.replace(proof, bin_polys=bad["bin_poly"]),
+        "ip_finals": dataclasses.replace(proof, ip_finals=bad["ip_finals"]),
+        "row_sum": za.softmax_prove(fr_ops.to_mont(fr_ops.from_u32(q_off)), seq, seq, FiatShamir()),
+    }
+    for name, bad_proof in tampers.items():
+        want = tuple(jax_meta[f"soft16_tamper_{name}"])
+        got = za.softmax_verify(bad_proof)
+        if got != (False, want[1]):
+            raise AssertionError(f"cheap softmax tampered {name}: {got}, expected (False, {want[1]!r})")
+        log(f"[tower] cheap softmax, tampered {name}: rejected: {got[1]}")
+    out.update(softmax_seq=seq, softmax_d=d, softmax_entries=int(P.shape[0]), softmax_range_bits=int(bits.shape[0]),
+               softmax_prove_s=prove_s, softmax_aux_and_bits_s=t2 - t1, softmax_card_cpu_P_flips=flips)
+    log(f"[tower] cheap softmax at seq {seq}, d {d} on the block's scores: P of {P.shape[0]} entries "
+        f"({bits.shape[0]} range bits; {flips} entries differ from the CPU's float32 softmax), aux and bits "
+        f"{t2 - t1:.3f}s, prove {prove_s:.3f}s on the card, verified, every proof array equal to the CPU's proof of "
+        "the same P")
+    torch.cuda.synchronize()
+    launches = {kn.name: kn.launches for kn in path}
+    out["launches"] = launches
+    log(f"[tower] kernel launches of phase 10: {json.dumps(launches)}")
+    for kn in path:
+        if kn.launches <= 0:
+            raise AssertionError(f"kernel {kn.name} was not launched in phase 10")
+        if kn in tower_kernels():
+            records[kn.name]["launches"] = kn.launches
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[time] phase 10 (tower, NTT, windowed, cheap softmax): {out['seconds']:.1f}s")
 
 
 # ---------------------------------------------------------------------------
@@ -2845,6 +3333,13 @@ def main() -> int:
         print(json.dumps({"g1_scalar_mul_glv_shapes": records["_g1_scalar_mul_glv_shapes"],
                           "g1_scalar_mul_glv_forms": glv_form_sweep(dev)}), flush=True)
         return 0
+    if args == ["--tower"]:
+        phase_tower_kernels(records)
+        phase_tower(records)
+        print(json.dumps({k: records[k] for k in ("fr_ntt", "g2_scalar_mul", "g2_add", "g1_scalar_mul_windowed",
+                                                  "_fr_ntt_shapes", "_g2_shapes", "_g1_scalar_mul_windowed_edges",
+                                                  "_g1_scalar_mul_windowed_msm", "_tower")}), flush=True)
+        return 0
     if args == ["--var"]:
         phase_var(dev, records)
         print(json.dumps({"g1_scalar_mul_shapes": records["_g1_scalar_mul_shapes"], **phase_var_times(dev)}),
@@ -2854,6 +3349,7 @@ def main() -> int:
     phase_var(dev, records)
     phase_glv(dev, records)
     phase_collect(records)
+    phase_tower_kernels(records)
     records["_var_times"] = phase_var_times(dev)
     log(f"[time] phases 1-2: {time.perf_counter() - t0:.1f}s")
     phase_small()
@@ -2877,11 +3373,10 @@ def main() -> int:
     phase_k7(records)
     phase_attention(records)
     log(f"[time] phase 7 (attention): {time.perf_counter() - t0:.1f}s")
-    from zkdl_tpu_torch.curve import g1
-    from zkdl_tpu_torch.field import kernels
-
+    phase_tower(records, records.pop("_attention_S"))
+    log(f"[time] phase 10 (tower): {time.perf_counter() - t0:.1f}s")
     kernels_line = []
-    for k in (*kernels.KERNELS, *g1.KERNELS):
+    for k in port_kernels():
         r = records[k.name]
         kernels_line.append({"name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
                              "launches": r["launches"], "max_abs_err": r["max_abs_err"],
@@ -2895,7 +3390,10 @@ def main() -> int:
                       "committed": records["_committed"], "demo": records["_demo"],
                       "schedules": records["_schedules"], "attention": records["_attention"],
                       "g1_scalar_mul_glv_shapes": records["_g1_scalar_mul_glv_shapes"],
-                      "to_port_bounds": records["_to_port_bounds"],
+                      "fr_ntt_shapes": records["_fr_ntt_shapes"], "g2_shapes": records["_g2_shapes"],
+                      "g1_scalar_mul_windowed_msm": records["_g1_scalar_mul_windowed_msm"],
+                      "g1_scalar_mul_windowed_edges": records["_g1_scalar_mul_windowed_edges"],
+                      "tower": records["_tower"],
                       "blinded": records["_blinded"], "checkpoint": records["_checkpoint"],
                       "conv": records["_conv"], "sharded": records["_sharded"],
                       "me_open": records["_me_open"]}), flush=True)

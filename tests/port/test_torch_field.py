@@ -14,6 +14,7 @@ from zkdl_tpu.field import mp as jmp
 from zkdl_tpu.field import pallas_fr as jpf
 from zkdl_tpu.field import planar as jplanar
 from zkdl_tpu_torch.field import fp, fr, kernels, planar
+from zkdl_tpu_torch.tensor import fr_ops
 from zkdl_tpu_torch.utils import build
 
 N = 16
@@ -116,3 +117,29 @@ def test_wrappers_reject_bad_operands():
         kernels.mul(a.to(torch.int64), a)
     with pytest.raises(ValueError):
         kernels.dot(a.to("meta"), a.to("meta"))
+
+
+# --- the (n, 8) element ops of zkdl_tpu/field/fr.py (recorded by record_slice14.py)
+
+FR_OPS = {
+    "double": lambda a, b, m: fr_ops.double(a),
+    "sqr": lambda a, b, m: fr_ops.sqr(a),
+    "unmont": lambda a, b, m: fr_ops.unmont(a),
+    "mont": lambda a, b, m: fr_ops.to_mont(a),
+    "pow5": lambda a, b, m: fr_ops.pow_static(a, 5),
+    "pow_inv": lambda a, b, m: fr_ops.pow_static(a, fr.P_INT - 2),
+    "is_zero": lambda a, b, m: fr_ops.is_zero(a),
+    "eq": lambda a, b, m: fr_ops.eq(a, b),
+    "select": lambda a, b, m: fr_ops.select(m, a, b),
+    "zeros": lambda a, b, m: fr_ops.zeros(3, "cpu"),
+    "ones_mont": lambda a, b, m: fr_ops.ones_mont(3, "cpu"),
+}
+
+
+@pytest.mark.parametrize("op", sorted(FR_OPS))
+def test_fr_element_op_equals_jax(op):
+    """On 0, 1, 2, p - 1, p - 2 and random values (a, b equal at one entry)."""
+    from slice14_fixture import same, t
+
+    got = FR_OPS[op](t("fr/a"), t("fr/b"), t("fr/mask"))
+    assert same(got, f"fr/{op}")

@@ -70,3 +70,40 @@ def test_failed_native_build_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(build, "_loaded", {})
     with pytest.raises(RuntimeError, match="g[+][+] failed for zkdl_host.cpp"):
         host_g1.scalar_mul_batch([host_g1.GENERATOR], [3])
+
+
+# --- the library's other entry points (recorded from the JAX package's
+# native library by record_slice14.py)
+
+
+def _native_case():
+    from slice14_fixture import meta
+
+    m = meta("native")
+
+    def pts(v):
+        return [tuple(int(c, 16) for c in p) for p in v]
+
+    return m, pts
+
+
+@pytest.mark.parametrize("entry", ["g1_msm", "g1_sum", "g1_add_batch", "g1_eq", "fr_mont_mul_batch"])
+def test_native_entry_point_equals_jax(entry):
+    """On G, 2G, random multiples of G (z != 1), O and (r^2, -r^3, 0), the
+    scalars 0, 1, r - 1, 2^256 - 1 and random ones; equality on an equal
+    pair with other limbs, unequal points and identities."""
+    from zkdl_tpu_torch import native
+
+    m, pts = _native_case()
+    P, Q = pts(m["points"]), pts(m["qs"])
+    if entry == "g1_msm":
+        assert native.g1_msm(P, [int(k, 16) for k in m["scalars"]]) == pts([m["g1_msm"]])[0]
+    elif entry == "g1_sum":
+        assert native.g1_sum(P) == pts([m["g1_sum"]])[0]
+    elif entry == "g1_add_batch":
+        assert native.g1_add_batch(P, Q) == pts(m["g1_add_batch"])
+    elif entry == "g1_eq":
+        assert [native.g1_eq(pts([p])[0], pts([q])[0]) for p, q in m["eq_pairs"]] == m["g1_eq"]
+    else:
+        got = native.fr_mont_mul_batch([int(v, 16) for v in m["fa"]], [int(v, 16) for v in m["fb"]])
+        assert got == [int(v, 16) for v in m["fr_mont_mul_batch"]]

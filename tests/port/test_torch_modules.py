@@ -85,3 +85,27 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         bench.run("micro")
     with pytest.raises(RuntimeError, match="cuda"):
         convert.layer_from_arrays(np.zeros((64, 8), np.uint32), np.zeros((8, 8), np.uint32), 8, 8)
+
+
+# --- tensor/planar_ops.py's folds and evaluations (recorded by record_slice14.py)
+
+PLANAR_OPS = {
+    "to_rev": lambda t, x, u: pops.to_planar_rev(t, 4),
+    "to_rev_pad": lambda t, x, u: pops.to_planar_rev(t[:11], 4),
+    "from_rev": lambda t, x, u: pops.from_planar_rev(pops.to_planar_rev(t, 4)),
+    "fold_half": lambda t, x, u: pops.fold_half(pops.to_planar_rev(t, 4), x),
+    "fold_axis1": lambda t, x, u: pops.fold_axis(t.transpose(0, 1).reshape(8, 4, 4), x, 1),
+    "fold_axis2": lambda t, x, u: pops.fold_axis(t.transpose(0, 1).reshape(8, 4, 4), x, 2),
+    "me_eval_rev": lambda t, x, u: pops.me_eval_rev(pops.to_planar_rev(t, 4), u),
+    "me_eval_rev_dot": lambda t, x, u: pops.me_eval_rev_dot(pops.to_planar_rev(t, 4), u),
+    "inverse_scalar": lambda t, x, u: pops.inverse_scalar(x),
+}
+
+
+@pytest.mark.parametrize("op", sorted(PLANAR_OPS))
+def test_planar_op_equals_jax(op):
+    """On a 16-entry Montgomery tensor, a scalar and a 4-variable point."""
+    from slice14_fixture import same, t
+
+    got = PLANAR_OPS[op](t("planar/t"), t("planar/x"), t("planar/u"))
+    assert same(got, f"planar/{op}")

@@ -32,6 +32,13 @@ scalar split in the kernel, a point's two 16-entry tables in shared memory
 or in a device scratch, the window walk on K8's own carry-chain Fp product
 (``csrc/fp_chain.cuh``) in the forms of ``GLV_FORMS``. On CPU tensors it
 runs ``scalar_mul_glv_plain``.
+
+``scalar_mul_windowed`` on CUDA tensors launches K13 (``csrc/g1_win.cu``),
+which replaces the XLA loop of g1.py:scalar_mul_windowed (:187-214) limb
+for limb: a point's 16-entry table built by generic adds, then 64 4-bit
+windows from the top, four doubles and one add each, one thread a point on
+K8's carry-chain Fp product. On CPU tensors it runs
+``scalar_mul_windowed_plain``.
 """
 
 from __future__ import annotations
@@ -65,7 +72,8 @@ COMB = Kernel("g1_comb", "zkdl_tpu_torch/csrc/g1_comb.cu", "zkdl_tpu/curve/g1.py
 SCALAR_MUL = Kernel("g1_scalar_mul", "zkdl_tpu_torch/csrc/g1_var.cu", "zkdl_tpu/curve/g1.py:168")
 ADD = Kernel("g1_add", "zkdl_tpu_torch/csrc/g1_var.cu", "zkdl_tpu/curve/g1.py:106")
 GLV = Kernel("g1_scalar_mul_glv", "zkdl_tpu_torch/csrc/g1_glv.cu", "zkdl_tpu/curve/g1.py:302")
-KERNELS = (COMB, SCALAR_MUL, ADD, GLV)
+KERNELS = (COMB, SCALAR_MUL, ADD, GLV)  # the kernels of the MLP's and the attention block's paths
+WINDOWED = Kernel("g1_scalar_mul_windowed", "zkdl_tpu_torch/csrc/g1_win.cu", "zkdl_tpu/curve/g1.py:187")
 # K5's layouts (csrc/g1_var.cu): chosen by the launch's size, or forced
 SCALAR_MUL_FORMS = {"auto": 0, "warp": 1, "quad": 2, "pair": 3}
 # K8's forms (csrc/g1_glv.cu): four lanes a point with the tables in shared
@@ -640,6 +648,65 @@ def scalar_mul_glv(p: G1Jac, scalar: torch.Tensor, form: str = "auto") -> G1Jac:
         table = torch.empty(words, dtype=torch.uint32, device=dev) if words else None
         out = _launch(GLV, functools.partial(lib.zk_g1_glv, GLV_FORMS[form]), dev, n,
                       *(c.data_ptr() for c in pr), ps, sc.data_ptr(), None if table is None else table.data_ptr())
+    return G1Jac(*(c.reshape(*shape, 12) for c in out))
+
+
+# --- fixed 4-bit windows: K13 ------------------------------------------------
+
+
+def _scalar_mul_windowed_w(p, digits):
+    """g1.py:scalar_mul_windowed's walk over the working form: the table of
+    _mk_table_w (the same adds), then per window from the top four doubles
+    and an add of t[digit]. The windows above every point's highest nonzero
+    digit are skipped: there the walk doubles (0, 0, 0) and adds t[0] =
+    (0, 0, 0), which leaves the same limbs."""
+    table = _mk_table_w(p)
+    live = (digits != 0).any(0).nonzero()
+    zero = torch.zeros_like(p[0])
+    out = (zero, zero, zero)
+    for i in range(int(live.max()) if live.numel() else -1, -1, -1):
+        for _ in range(_COMB_W):
+            out = _double_w(out)
+        out = _add_w(out, _lookup_w(table, digits[:, i]))
+    return out
+
+
+def scalar_mul_windowed_plain(p: G1Jac, scalar: torch.Tensor) -> G1Jac:
+    """scalar * p by g1.py:scalar_mul_windowed (window 4), limb for limb,
+    for (n,) points and (n, 8) raw scalars, plain PyTorch on any device."""
+    p = _flat(p)
+    n = p.x.shape[0]
+    sc = scalar.reshape(n, 8)
+    return _chunked(n, lambda lo, hi: _stored(_scalar_mul_windowed_w(_work(p, lo, hi), _digits(sc[lo:hi])))) \
+        or identity((0,), p.x.device)
+
+
+def _win_lib() -> ctypes.CDLL:
+    lib = build.load("g1_win")
+    if not getattr(lib, "_zk_typed", False):
+        P, I = ctypes.c_void_p, ctypes.c_longlong
+        lib.zk_g1_windowed.argtypes = [P, P, P, I, P, P, P, P, I, P, ctypes.c_int]
+        lib.zk_g1_windowed.restype = ctypes.c_int
+        lib._zk_typed = True
+    return lib
+
+
+def scalar_mul_windowed(p: G1Jac, scalar: torch.Tensor) -> G1Jac:
+    """scalar * p by g1.py:scalar_mul_windowed's fixed 4-bit windows (its
+    default window), limb for limb (group-equal to scalar_mul, not
+    limb-equal). scalar: raw uint32 (*p.shape, 8), one per point. K13 on
+    CUDA tensors, the plain version on CPU ones."""
+    _check_points(p)
+    shape = p.shape
+    if scalar.dtype != torch.uint32 or tuple(scalar.shape) != (*shape, 8):
+        raise ValueError(f"scalar_mul_windowed: scalars {scalar.dtype} {tuple(scalar.shape)} for points {tuple(shape)}")
+    dev = _device(scalar, *p)
+    if dev.type == "cpu":
+        out = scalar_mul_windowed_plain(p, scalar)
+    else:
+        pr, ps = _rows_and_stride(p)
+        out = _launch(WINDOWED, _win_lib().zk_g1_windowed, dev, pr.x.shape[0], *(c.data_ptr() for c in pr), ps,
+                      scalar.reshape(-1, 8).contiguous().data_ptr())
     return G1Jac(*(c.reshape(*shape, 12) for c in out))
 
 

@@ -4,9 +4,11 @@ Counterpart of ``zkdl_tpu/models/zkattention.py``: ``MatmulProof``,
 ``matmul_prove``/``matmul_verify`` (:117-153), ``ZkAttention``
 (``from_float``, ``forward``, ``prove`` in both tiers, ``verify``,
 ``_replay_transcript``, ``_verify_committed``, :240-590),
-``ZkAttentionProof`` and ``_transpose``. The cheap softmax variant
-(``softmax_aux``, ``p_range_bits``, ``SoftmaxProof``, :58-238) is on no
-entry point and is not ported.
+``ZkAttentionProof`` and ``_transpose``; and the cheap softmax variant,
+on no entry point of either package (:49-231: ``P_RANGE_BITS``,
+``softmax_aux``, ``p_range_bits``, ``SoftmaxProof``, ``softmax_prove``,
+``softmax_verify``): a range proof of P's 17-bit entries and a proof that
+every row of P sums to 2^16, on the natural-order provers (K1-K3).
 
     Q = rescale(X Wq)   K = rescale(X Wk)   V = rescale(X Wv)
     S = rescale(Q K^T)  P = softmax circuit of S (zksoftmax)
@@ -29,12 +31,15 @@ import numpy as np
 import torch
 
 from ..commit import witness as wcommit
-from ..field import mp
+from ..field import fr, host, mp, planar
 from ..sumcheck import protocols as sc
 from ..sumcheck.transcript import ChallengeSource
 from ..tensor import fr_ops
 from ..utils import prng
-from . import zkfc, zkrelu, zkrescale, zksoftmax
+from . import quantize, zkfc, zkrelu, zkrescale, zksoftmax
+
+HF = host.fr
+P_RANGE_BITS = 17  # P entries lie in [0, 2^16]: 17 bits cover the closed range
 
 
 @dataclasses.dataclass
@@ -68,6 +73,114 @@ def matmul_verify(proof: MatmulProof) -> tuple[bool, str]:
     fa, fb = ints(proof.ip_finals)
     if not sc.inner_product_check_final(res, fa, fb):
         return False, "final product mismatch"
+    return True, ""
+
+
+# ---------------------------------------------------------------------------
+# the cheap softmax: prover's P, its range bits, and its proof
+# ---------------------------------------------------------------------------
+
+
+def _softmax_aux_core(S: torch.Tensor, rows: int, cols: int, d_model: int) -> torch.Tensor:
+    """S: (rows*cols, 8) Montgomery at scale 2^16 (signed) -> int64 (rows,
+    cols) P values at scale 2^16, each row summing to exactly 2^16
+    (zkattention.py:_softmax_aux_core): the float32 softmax of S / 2^16 /
+    sqrt(d_model), floored at 2^16, the residue put on the row's first
+    maximum. On S's device."""
+    pos_max, _ = zkrelu._width_consts(zkrelu.Q, zkrelu.R)
+    x = mp.i64(planar.from_mont(planar.to_planar(S)))  # (8, n) raw
+    pos = mp.gte(mp.const(pos_max, x), x)
+    neg_mag = mp.mod_sub(fr.SPEC.P_limbs, torch.zeros_like(x), x)
+    lo = torch.where(pos, x[0], neg_mag[0]).to(torch.float32)
+    hi = torch.where(pos, x[1], neg_mag[1]).to(torch.float32)
+    mag = lo + hi * torch.tensor(2.0**32, dtype=torch.float32)
+    val = torch.where(pos, mag, -mag) / torch.tensor(float(quantize.SCALE), dtype=torch.float32)
+    logits = (val / torch.tensor(float(np.float32(np.sqrt(d_model))), dtype=torch.float32)).reshape(rows, cols)
+    mx = logits.max(dim=1, keepdim=True).values
+    e = torch.exp(logits - mx)
+    p = e / e.sum(dim=1, keepdim=True)
+    q = torch.floor(p * torch.tensor(float(quantize.SCALE), dtype=torch.float32)).to(torch.int64)
+    resid = quantize.SCALE - q.sum(dim=1)
+    am = q.argmax(dim=1)  # the first maximum
+    q[torch.arange(rows, device=q.device), am] += resid
+    return q
+
+
+def softmax_aux(S: torch.Tensor, rows: int, cols: int, d_model: int, real_rows: int | None = None):
+    """The prover's P: ((rows*cols, 8) Montgomery P on S's device, uint32
+    numpy (rows, cols) values). Padding rows (>= real_rows) are replaced by
+    2^16 e_0 so every row sums to 2^16 (zkattention.py:softmax_aux)."""
+    q = _softmax_aux_core(S, rows, cols, d_model)
+    if real_rows is not None and real_rows < rows:
+        q[real_rows:] = 0
+        q[real_rows:, 0] = quantize.SCALE
+    P = fr_ops.to_mont(fr_ops.from_u32(q.reshape(-1)))
+    return P, q.to(torch.uint32).cpu().numpy()
+
+
+def p_range_bits(P: torch.Tensor) -> torch.Tensor:
+    """17-bit LSB-first decomposition of P's values -> (n*17, 8) Montgomery
+    bits, entry-major (zkattention.py:p_range_bits)."""
+    vals = mp.i64(fr_ops.unmont(P)[:, 0])  # entries < 2^17 live in limb 0
+    shifts = torch.arange(P_RANGE_BITS, device=P.device)
+    return fr_ops.mont_bits(mp.u32((vals[:, None] >> shifts) & 1).reshape(-1))
+
+
+@dataclasses.dataclass
+class SoftmaxProof:
+    # range: binary sumcheck over the 17-bit decomposition + recombination fold
+    u_bin: torch.Tensor
+    v_bin: torch.Tensor
+    bin_polys: torch.Tensor
+    bin_final: torch.Tensor
+    u_rec: torch.Tensor
+    bits_at_u: torch.Tensor  # (17, 8) recombination claims
+    # normalization: <P(u_row, .), 1> == 2^16
+    u_row: torch.Tensor
+    u_col: torch.Tensor
+    ip_polys: torch.Tensor
+    ip_finals: torch.Tensor  # (2, 8): P'(u_col), 1
+
+
+def softmax_prove(P: torch.Tensor, rows: int, cols: int, challenges: ChallengeSource) -> SoftmaxProof:
+    """Range and normalization proof of the (rows*cols, 8) Montgomery P
+    (zkattention.py:softmax_prove): the binary sumcheck of its bits over
+    log n + 5 variables (17n bits padded to 32n), the bits' recombination
+    claims, and the inner product of each row (folded at u_row) with ones."""
+    n = rows * cols
+    log_n = fr_ops.ceil_log2(n)
+    bits = p_range_bits(P)
+    u_bin = challenges.random_vec(log_n + 5)
+    v_bin = challenges.random_vec(log_n + 5)
+    u_rec = challenges.random_vec(log_n)
+    u_row = challenges.random_vec(fr_ops.ceil_log2(rows))
+    u_col = challenges.random_vec(fr_ops.ceil_log2(cols))
+    bin_polys, bin_final = sc.binary_prove(bits, u_bin, v_bin)
+    bits_at_u = fr_ops.partial_me(bits, u_rec, P_RANGE_BITS)
+    P_row_folded = fr_ops.partial_me(P, u_row, cols)
+    ip_polys, ip_finals = sc.inner_product_prove(P_row_folded, fr_ops.ones_mont(cols, P.device), u_col)
+    proof = SoftmaxProof(u_bin, v_bin, bin_polys, bin_final, u_rec, bits_at_u, u_row, u_col, ip_polys, ip_finals)
+    challenges.absorb_array(bin_polys)
+    challenges.absorb_array(ip_polys)
+    return proof
+
+
+def softmax_verify(proof: SoftmaxProof) -> tuple[bool, str]:
+    """Host verifier (zkattention.py:softmax_verify)."""
+    ints = sc.scalars_to_ints
+    res = sc.binary_verify(sc.polys_to_ints(proof.bin_polys), ints(proof.u_bin), ints(proof.v_bin),
+                           ints(proof.bin_final)[0])
+    if not res.ok:
+        return False, "range: " + res.reason
+    # normalization: the initial sum claim must be exactly mont(2^16)
+    res = sc.inner_product_verify(sc.polys_to_ints(proof.ip_polys), ints(proof.u_col), HF.mont(quantize.SCALE))
+    if not res.ok:
+        return False, "norm: " + res.reason
+    fa, fb = ints(proof.ip_finals)
+    if fb != HF.one_mont:
+        return False, "norm: ones-vector final != 1"
+    if not sc.inner_product_check_final(res, fa, fb):
+        return False, "norm: final product mismatch"
     return True, ""
 
 

@@ -9,6 +9,10 @@ Points cross the boundary as plain-int Jacobian (x, y, z) triples (48 bytes
 a coordinate, little-endian), scalars as 256-bit little-endian words. A
 large batch is split over threads: ctypes releases the interpreter lock for
 the call, and each thread's slice of the buffers is its own.
+
+The library's other entry points (zkdl_tpu/native/__init__.py:145-192:
+``g1_msm``, ``g1_sum``, ``g1_add_batch``, ``g1_eq``, ``fr_mont_mul_batch``)
+take the same int forms and run on one thread.
 """
 
 from __future__ import annotations
@@ -31,8 +35,12 @@ def lib() -> ctypes.CDLL:
     L = build.load("zkdl_host")
     if not getattr(L, "_zk_typed", False):
         P = ctypes.c_void_p
-        L.zk_g1_scalar_mul_batch.argtypes = [P, P, P, ctypes.c_size_t]
-        L.zk_g1_scalar_mul_batch.restype = None
+        S = ctypes.c_size_t
+        for f, args in ((L.zk_g1_scalar_mul_batch, [P, P, P, S]), (L.zk_g1_msm, [P, P, P, S]),
+                        (L.zk_g1_sum, [P, P, S]), (L.zk_g1_add_batch, [P, P, P, S]),
+                        (L.zk_fr_mont_mul_batch, [P, P, P, S])):
+            f.argtypes, f.restype = args, None
+        L.zk_g1_eq.argtypes, L.zk_g1_eq.restype = [P, P], ctypes.c_int
         L._zk_typed = True
     return L
 
@@ -50,10 +58,8 @@ def g1_scalar_mul_batch(points, scalars) -> list[tuple[int, int, int]]:
     if n == 0:
         return []
     L = lib()
-    pts = (ctypes.c_char * (_POINT * n)).from_buffer_copy(
-        b"".join(c.to_bytes(_COORD, "little") for p in points for c in p))
-    ks = (ctypes.c_char * (_SCALAR * n)).from_buffer_copy(
-        b"".join((int(k) & _MASK256).to_bytes(_SCALAR, "little") for k in scalars))
+    pts = _points_buf(points)
+    ks = _ints_buf([int(k) & _MASK256 for k in scalars], _SCALAR)
     out = (ctypes.c_char * (_POINT * n))()
     base_p, base_k, base_o = ctypes.addressof(pts), ctypes.addressof(ks), ctypes.addressof(out)
 
@@ -68,6 +74,58 @@ def g1_scalar_mul_batch(points, scalars) -> list[tuple[int, int, int]]:
         with concurrent.futures.ThreadPoolExecutor(t) as ex:
             for f in [ex.submit(run, cuts[i], cuts[i + 1]) for i in range(t)]:
                 f.result()
-    raw = out.raw
+    return _points_of(out.raw, n)
+
+
+def _points_buf(points):
+    return (ctypes.c_char * (_POINT * len(points))).from_buffer_copy(
+        b"".join(int(c).to_bytes(_COORD, "little") for p in points for c in p))
+
+
+def _ints_buf(vals, width: int):
+    return (ctypes.c_char * (width * len(vals))).from_buffer_copy(
+        b"".join(int(v).to_bytes(width, "little") for v in vals))
+
+
+def _points_of(raw: bytes, count: int) -> list[tuple[int, int, int]]:
     return [tuple(int.from_bytes(raw[o + j * _COORD : o + (j + 1) * _COORD], "little") for j in range(3))
-            for o in range(0, _POINT * n, _POINT)]
+            for o in range(0, _POINT * count, _POINT)]
+
+
+def g1_msm(points, scalars) -> tuple[int, int, int]:
+    """sum_i k_i P_i for plain-int Jacobian triples and ints k_i (mod 2^256)."""
+    if len(scalars) != len(points):
+        raise ValueError(f"{len(points)} points but {len(scalars)} scalars")
+    out = (ctypes.c_char * _POINT)()
+    lib().zk_g1_msm(_points_buf(points), _ints_buf([int(k) & _MASK256 for k in scalars], _SCALAR), out, len(points))
+    return _points_of(out.raw, 1)[0]
+
+
+def g1_sum(points) -> tuple[int, int, int]:
+    out = (ctypes.c_char * _POINT)()
+    lib().zk_g1_sum(_points_buf(points), out, len(points))
+    return _points_of(out.raw, 1)[0]
+
+
+def g1_add_batch(ps, qs) -> list[tuple[int, int, int]]:
+    if len(ps) != len(qs):
+        raise ValueError(f"{len(ps)} and {len(qs)} points")
+    out = (ctypes.c_char * (_POINT * len(ps)))()
+    lib().zk_g1_add_batch(_points_buf(ps), _points_buf(qs), out, len(ps))
+    return _points_of(out.raw, len(ps))
+
+
+def g1_eq(p, q) -> bool:
+    """Affine equality of two plain-int Jacobian triples."""
+    return bool(lib().zk_g1_eq(_points_buf([p]), _points_buf([q])))
+
+
+def fr_mont_mul_batch(a_vals, b_vals) -> list[int]:
+    """Montgomery products of Montgomery-form Fr ints (a b R^-1 mod r)."""
+    if len(a_vals) != len(b_vals):
+        raise ValueError(f"{len(a_vals)} and {len(b_vals)} values")
+    n = len(a_vals)
+    out = (ctypes.c_char * (32 * n))()
+    lib().zk_fr_mont_mul_batch(_ints_buf(a_vals, 32), _ints_buf(b_vals, 32), out, n)
+    raw = out.raw
+    return [int.from_bytes(raw[32 * i : 32 * (i + 1)], "little") for i in range(n)]

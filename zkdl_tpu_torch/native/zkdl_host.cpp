@@ -5,8 +5,9 @@
 // (commit/pedersen.py:verify_open_against_com) and the three cross terms of
 // every opening round (verify_open). This library does it in C++ with
 // 6x64-bit-limb Montgomery arithmetic (CIOS, __uint128_t carries); it is the
-// port's own copy of zkdl_tpu/native/zkdl_host.cpp, cut to what the port
-// calls. Built with g++ at first use (utils/build.py) and bound with ctypes
+// port's own copy of zkdl_tpu/native/zkdl_host.cpp: the batched scalar
+// multiplication, and the library's other entry points (the G1 MSM, sum,
+// batched add and equality, the batched Fr Montgomery product). Built with g++ at first use (utils/build.py) and bound with ctypes
 // (native/__init__.py); curve/host_g1.py keeps the pure-Python formulas as
 // the tests' oracle.
 //
@@ -25,6 +26,8 @@ typedef unsigned __int128 u128;
 // against the Python host oracle)
 // ---------------------------------------------------------------------------
 
+static const uint64_t FR_P[4] = { 0xffffffff00000001ULL, 0x53bda402fffe5bfeULL, 0x3339d80809a1d805ULL, 0x73eda753299d7d48ULL };
+static const uint64_t FR_INV = 0xfffffffeffffffffULL;
 static const uint64_t FP_P[6] = { 0xb9feffffffffaaabULL, 0x1eabfffeb153ffffULL, 0x6730d2a0f6b0f624ULL, 0x64774b84f38512bfULL, 0x4b1ba7b6434bacd7ULL, 0x1a0111ea397fe69aULL };
 static const uint64_t FP_INV = 0x89f3fffcfffcfffdULL;
 static const uint64_t FP_R2[6] = { 0xf4df1f341c341746ULL, 0x0a76e6a609d104f1ULL, 0x8de5476c4c95b6d5ULL, 0x67eb88a9939d83c0ULL, 0x9a793e85b519952dULL, 0x11988fe592cae3aaULL };
@@ -244,6 +247,12 @@ static inline void g1_store(uint64_t* out, const G1& p) {
 
 extern "C" {
 
+// out = a * b * R^-1 mod r (Montgomery-form ints in and out), batched
+void zk_fr_mont_mul_batch(const uint64_t* a, const uint64_t* b, uint64_t* out, size_t n) {
+    for (size_t i = 0; i < n; ++i)
+        mont_mul<4>(out + 4 * i, a + 4 * i, b + 4 * i, FR_P, FR_INV);
+}
+
 // points: n*18 u64 plain-int Jacobian; scalars: n*4 u64 raw 256-bit
 void zk_g1_scalar_mul_batch(const uint64_t* pts, const uint64_t* scalars,
                             uint64_t* out, size_t n) {
@@ -253,6 +262,60 @@ void zk_g1_scalar_mul_batch(const uint64_t* pts, const uint64_t* scalars,
         g1_scalar_mul(r, p, scalars + 4 * i);
         g1_store(out + 18 * i, r);
     }
+}
+
+void zk_g1_add_batch(const uint64_t* p, const uint64_t* q, uint64_t* out, size_t n) {
+    for (size_t i = 0; i < n; ++i) {
+        G1 a, b, r;
+        g1_load(a, p + 18 * i);
+        g1_load(b, q + 18 * i);
+        g1_add(r, a, b);
+        g1_store(out + 18 * i, r);
+    }
+}
+
+// out = sum_i pts[i], left to right from the identity
+void zk_g1_sum(const uint64_t* pts, uint64_t* out, size_t n) {
+    G1 acc;
+    g1_set_identity(acc);
+    for (size_t i = 0; i < n; ++i) {
+        G1 p;
+        g1_load(p, pts + 18 * i);
+        g1_add(acc, acc, p);
+    }
+    g1_store(out, acc);
+}
+
+// out = sum_i scalar_i * P_i: each product by double-and-add, summed left
+// to right from the identity
+void zk_g1_msm(const uint64_t* pts, const uint64_t* scalars, uint64_t* out, size_t n) {
+    G1 acc;
+    g1_set_identity(acc);
+    for (size_t i = 0; i < n; ++i) {
+        G1 p, r;
+        g1_load(p, pts + 18 * i);
+        g1_scalar_mul(r, p, scalars + 4 * i);
+        g1_add(acc, acc, r);
+    }
+    g1_store(out, acc);
+}
+
+// affine equality by cross-multiplication (no inversion)
+int zk_g1_eq(const uint64_t* p_in, const uint64_t* q_in) {
+    G1 p, q;
+    g1_load(p, p_in);
+    g1_load(q, q_in);
+    bool pi = g1_is_identity(p), qi = g1_is_identity(q);
+    if (pi || qi) return pi == qi;
+    // x1/z1^2 == x2/z2^2 and y1/z1^3 == y2/z2^3
+    Fp z1z1, z2z2, a, b;
+    fp_sqr(z1z1, p.z); fp_sqr(z2z2, q.z);
+    fp_mul(a, p.x, z2z2); fp_mul(b, q.x, z1z1);
+    if (!fp_eq(a, b)) return 0;
+    Fp z1c, z2c;
+    fp_mul(z1c, z1z1, p.z); fp_mul(z2c, z2z2, q.z);
+    fp_mul(a, p.y, z2c); fp_mul(b, q.y, z1c);
+    return fp_eq(a, b) ? 1 : 0;
 }
 
 }  // extern "C"

@@ -3,7 +3,10 @@
 :69-92, ``partial_me_step``/``partial_me`` :95-126, ``random_fr`` :129,
 ``random_int`` :140, ``from_u32`` :151), and the (n, 8) Montgomery tensors
 of small integers that the attention circuits build (``mont_from_u64``,
-``mont_bits``)."""
+``mont_bits``), and the remaining (n, 8) element ops of
+``zkdl_tpu/field/fr.py`` (:37-58: ``double``, ``sqr``, ``unmont``,
+``pow_static``, ``is_zero``, ``eq``, ``select``, ``zeros``), each on the
+planar kernels (K1, K2) or plain integer code."""
 
 from __future__ import annotations
 
@@ -70,6 +73,45 @@ def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _rows(planar.mul(planar.to_planar(a), planar.to_planar(b)))
 
 
+def double(a: torch.Tensor) -> torch.Tensor:
+    return _rows(planar.double(planar.to_planar(a)))
+
+
+def sqr(a: torch.Tensor) -> torch.Tensor:
+    """Elementwise Montgomery square (K1)."""
+    return mul(a, a)
+
+
+def pow_static(a: torch.Tensor, e: int) -> torch.Tensor:
+    """a^e elementwise for (n, 8) Montgomery a and a host exponent e >= 0,
+    square and multiply from e's top bit (K1); one value whatever the
+    order (fr.py:pow_static)."""
+    out = ones_mont(a.shape[0], a.device)
+    for b in range(int(e).bit_length() - 1, -1, -1):
+        out = sqr(out)
+        if (e >> b) & 1:
+            out = mul(out, a)
+    return out
+
+
+def is_zero(a: torch.Tensor) -> torch.Tensor:
+    """(n, 8) -> bool (n,)."""
+    return (a.view(torch.int32) == 0).all(-1)
+
+
+def eq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return (a.view(torch.int32) == b.view(torch.int32)).all(-1)
+
+
+def select(pred: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """where(pred, a, b) of (n, 8) tensors, pred bool (n,)."""
+    return mp.where(pred.unsqueeze(-1), a, b)
+
+
+def zeros(n: int, device) -> torch.Tensor:
+    return torch.zeros((n, 8), dtype=torch.uint32, device=device)
+
+
 def ones_mont(n: int, device) -> torch.Tensor:
     """(n, 8) Montgomery ones."""
     return _rows(planar.ones_mont(n, device))
@@ -83,6 +125,11 @@ def const(limbs, n: int, device) -> torch.Tensor:
 def to_mont(t: torch.Tensor) -> torch.Tensor:
     """(n, 8) raw -> (n, 8) Montgomery (K2)."""
     return planar.from_planar(planar.to_mont(planar.to_planar(t))).contiguous()
+
+
+def unmont(t: torch.Tensor) -> torch.Tensor:
+    """(n, 8) Montgomery -> (n, 8) raw (K2)."""
+    return planar.from_planar(planar.from_mont(planar.to_planar(t))).contiguous()
 
 
 def mont_from_u64(vals, device) -> torch.Tensor:

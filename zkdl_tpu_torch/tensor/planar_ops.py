@@ -1,6 +1,6 @@
 """Planar protocol helpers: bit-reversed storage and eq tables.
 
-Counterpart of ``zkdl_tpu/tensor/planar_ops.py`` (:41-107). Sumcheck folds
+Counterpart of ``zkdl_tpu/tensor/planar_ops.py`` (:41-168). Sumcheck folds
 bind the lowest index bit each round; storing tensors with their index bits
 reversed turns that into combining the two contiguous halves, so one gather
 per tensor per prove replaces a shuffle per round. Sums are order-free, so
@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..field import mp, planar
+from ..field.fr import SPEC
 
 
 @functools.lru_cache(maxsize=None)
@@ -66,3 +67,65 @@ def eq_table(u, device) -> torch.Tensor:
         lo = planar.sub(t, hi)
         t = torch.cat([lo, hi], dim=1)
     return t
+
+
+def inverse_scalar(x) -> torch.Tensor:
+    """x^-1 in Fr by Fermat (x^(p-2)), Montgomery in and out; x (8,) ->
+    (8,) on x's device (planar_ops.py:inverse_scalar), square and multiply
+    (K1)."""
+    x = torch.as_tensor(x)
+    x2 = x.reshape(8, 1).contiguous()
+    e = SPEC.p - 2
+    result = planar.ones_mont(1, x.device).contiguous()
+    acc = x2
+    while e > 0:
+        if e & 1:
+            result = planar.mul(result, acc)
+        e >>= 1
+        if e:
+            acc = planar.mul(acc, acc)
+    return result[:, 0].contiguous()
+
+
+def fold_half(t: torch.Tensor, x) -> torch.Tensor:
+    """One MLE fold on bit-reversed storage: t (8, n) (n even), host scalar
+    x (8,) -> (8, n/2) = t_lo + x (t_hi - t_lo) (planar_ops.py:fold_half)."""
+    h = t.shape[1] // 2
+    lo, hi = t[:, :h], t[:, h:]
+    return planar.add(lo, planar.mul_scalar(planar.sub(hi, lo), mp.host(x)))
+
+
+def fold_axis(t: torch.Tensor, x, axis: int) -> torch.Tensor:
+    """Fold the halves of `axis` (>= 1) of a planar (8, ...) tensor by the
+    host scalar x (8,) (planar_ops.py:fold_axis)."""
+    h = t.shape[axis] // 2
+    lo, hi = t.narrow(axis, 0, h), t.narrow(axis, h, h)
+    return planar.add(lo, planar.mul_scalar(planar.sub(hi, lo).contiguous(), mp.host(x)))
+
+
+def me_eval_rev(t: torch.Tensor, u) -> torch.Tensor:
+    """MLE of a bit-reversed planar (8, 2^r) tensor at host u ((r, 8)) ->
+    (8,); the value of fr_ops.me_eval on the unreversed (n, 8) tensor."""
+    u = mp.host(u)
+    if t.shape[1] != 1 << u.shape[0]:
+        raise ValueError(f"me_eval_rev: {t.shape[1]} columns for {u.shape[0]} challenges")
+    for i in range(u.shape[0]):
+        t = fold_half(t, u[i])
+    return t[:, 0].contiguous()
+
+
+def me_eval_rev_dot(t: torch.Tensor, u) -> torch.Tensor:
+    """me_eval_rev's value as one dot (K3) against the eq table."""
+    return planar.dot(t, eq_table_rev(mp.host(u), t.device))
+
+
+def to_planar_rev(t: torch.Tensor, r: int) -> torch.Tensor:
+    """(n, 8) (n <= 2^r, zero-padded) -> bit-reversed planar (8, 2^r)."""
+    from . import fr_ops
+
+    return bitrev_axis(planar.to_planar(fr_ops.pad_to(t, 1 << r)), axis=1).contiguous()
+
+
+def from_planar_rev(t: torch.Tensor) -> torch.Tensor:
+    """Bit-reversed planar (8, n) -> (n, 8) natural order."""
+    return planar.from_planar(bitrev_axis(t, axis=1)).contiguous()

@@ -25,7 +25,7 @@ PACKAGE = pathlib.Path(__file__).resolve().parents[1]
 CSRC = PACKAGE / "csrc"
 NATIVE = PACKAGE / "native"
 BUILD_DIR = PACKAGE / "_build"
-SOURCES = ("fr_kernels", "g1_comb", "g1_var", "fr_inverse", "g1_glv", "fr_collect")  # CUDA kernels, csrc/<name>.cu
+SOURCES = ("fr_kernels", "g1_comb", "g1_var", "fr_inverse", "g1_glv", "fr_collect", "fr_ntt", "g2", "g1_win")  # CUDA kernels, csrc/<name>.cu
 HOST_SOURCES = ("zkdl_host",)  # host libraries, native/<name>.cpp
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
