@@ -18,18 +18,22 @@ builds and runs.
     python3 chip_smoke.py --sharded --ranks N --backend nccl|gloo
                                         # phase 1 and phase 9 on N ranks: one card a rank with
                                         # NCCL (N cards), or every rank on card 0 with gloo
-    python3 chip_smoke.py --tower       # phase 1, K10-K13 against plain with their times, and
+    python3 chip_smoke.py --tower       # phase 1, K10-K13 against plain with their times,
                                         # phase 10 alone (its attention block built for its scores)
+                                        # and K11's and K13's forms swept over launch sizes
+    python3 chip_smoke.py --tower-times # K11 at 256, 4096 and 18,432 points, a K12 tree level and
+                                        # K13 (beside K8, K5) at 18,432, in each form, on seeded data
 
-`--comb`, `--var-times`, `--k7-times` and `--glv-times` time K4 (and K5, K6;
-K7; K8) on the same seeded inputs in any checkout of the port they are copied
-into, so that two versions can be compared in one call.
+`--comb`, `--var-times`, `--k7-times`, `--glv-times` and `--tower-times` time
+K4 (and K5, K6; K7; K8; K11-K13) on the same seeded inputs in any checkout of
+the port they are copied into, so that two versions can be compared in one
+call.
 
 Phases (each prints its own lines; any failure exits nonzero):
   1. the card's name and power limit, the host CPU's model; build of every
      CUDA kernel from csrc/ and of the verifier's host library (native/),
      all compilers started together; the registers and spill bytes of each
-     K8 instantiation (ptxas)
+     K8, K11 and K13 instantiation (ptxas; a spill fails the run)
   2. each kernel against its plain PyTorch version on the card, bit for bit,
      with its time at a main-path shape beside its bound; K3 also at the
      shapes where its design can break (one warp, the last-block reduction,
@@ -148,15 +152,16 @@ Phases (each prints its own lines; any failure exits nonzero):
      128, d 128: card proof = CPU proof, verified, three tampered copies
      rejected with the JAX verifier's reasons. Phase 2 also holds K10
      (fr_ntt) bit for bit against plain at n = 1 ... 4096 and 2^20, forward
-     and inverse, on zeros, p - 1 and random values, K11 (g2_scalar_mul) and
-     K12 (g2_add, g2_sum's levels) on G2's edge points (P, Q, R, O,
-     P + (-P), 2P, P + Q, 2Q, off the r-torsion subgroup) and scalars (0, 1,
-     2, 5, r - 1, r, 2^256 - 1) at 1 to 18,432 points, K12 also on the
-     first tree level of g2.msm at 4096 and 18,432 points, K13
-     (g1_scalar_mul_windowed) on K5's edges at 1 to 4097 points and at the
-     verify's MSM shape (18,432 points); and times K10 at 2^20, K11/K12
-     through g2.msm at 4096 and 18,432 points, K13 at the verify's MSM shape
-     beside K8 and K5
+     and inverse, on zeros, p - 1 and random values, K11 (g2_scalar_mul, in
+     each form) and K12 (g2_add, g2_sum's levels) on G2's edge points (P, Q,
+     R, O, P + (-P), 2P, P + Q, 2Q, off the r-torsion subgroup) and scalars
+     (0, 1, 2, 5, r - 1, r, 2^256 - 1) at 1 to 18,432 points, K12 also on
+     the first tree level of g2.msm at 4096 and 18,432 points, K13
+     (g1_scalar_mul_windowed, in each form) on K5's edges at 1 to 4097
+     points and at the verify's MSM shape (18,432 points); and times K10 at
+     2^20, K11 (each form) and K12 through g2.msm at 4096 and 18,432 points
+     and on the 256-point check set, K13 (each form) at the verify's MSM
+     shape beside K8 and K5
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -276,11 +281,16 @@ def max_abs_err(a, b) -> int:
 # ---------------------------------------------------------------------------
 
 
+# the instantiations that must not spill: (kernel, csrc source, entry prefix)
+SPILL_FREE = (("K8", "g1_glv", "g1_glv_kernel"), ("K11", "g2", "g2_team_kernel"),
+              ("K13", "g1_win", "g1_windowed_kernel"))
+
+
 def phase_build(host_library: bool = True, check_spills: bool = True) -> None:
     """host_library=False builds the CUDA kernels only (--comb, which also
     runs in checkouts that predate the host library); check_spills: fail if
-    ptxas spilled in any K8 instantiation (False where a times-only mode
-    builds another checkout's K8)."""
+    ptxas spilled in any instantiation of K8, K11 or K13 (SPILL_FREE; False
+    where a times-only mode builds another checkout's kernels)."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -300,13 +310,14 @@ def phase_build(host_library: bool = True, check_spills: bool = True) -> None:
     log(f"[build] kernels and the verifier's host library built in {secs:.2f}s (0 = already built)")
     for name in build.SOURCES:
         log(f"[build] {name}: " + build.ptxas_report(name).replace("\n", " | "))
-    k8 = ptxas_entries("g1_glv")
-    for entry, info in k8.items():
-        log(f"[build] K8 {entry}: {info.get('registers')} registers, {info.get('spill_stores')} bytes spill "
-            f"stores, {info.get('spill_loads')} bytes spill loads, {info.get('stack')} bytes stack frame")
-    spilled = [e for e, info in k8.items() if info.get("spill_stores", 0) or info.get("spill_loads", 0)]
-    if check_spills and (spilled or not k8):
-        raise AssertionError(f"K8 spills in {spilled}" if k8 else "no ptxas report of K8")
+    for kernel, name, prefix in SPILL_FREE:
+        entries = {e: info for e, info in ptxas_entries(name).items() if prefix in e}
+        for entry, info in entries.items():
+            log(f"[build] {kernel} {entry}: {info.get('registers')} registers, {info.get('spill_stores')} bytes spill "
+                f"stores, {info.get('spill_loads')} bytes spill loads, {info.get('stack')} bytes stack frame")
+        spilled = [e for e, info in entries.items() if info.get("spill_stores", 0) or info.get("spill_loads", 0)]
+        if check_spills and (spilled or not entries):
+            raise AssertionError(f"{kernel} spills in {spilled}" if entries else f"no ptxas report of {kernel}")
 
 
 def ptxas_entries(name: str) -> dict:
@@ -339,11 +350,16 @@ def ptxas_entries(name: str) -> dict:
             out[entry]["registers"] = int(m.group(1))
 
     def label(mangled: str) -> str:
-        m = re.search(r"(\d+)(\w+?_kernel)I(.*?)EEv", mangled)
-        if not m:
-            return mangled
-        args = [a or b for a, b in re.findall(r"NS_\d+(\w+?)E|Li(\d+)E", m.group(3))]
-        return f"{m.group(2)}<{', '.join(args)}>"
+        # the kernel's name is the length-prefixed identifier ending in _kernel
+        # that its template arguments (I...E) follow
+        for m in re.finditer(r"(?=(\d+))", mangled):  # a digit run from every position
+            end = m.start() + len(m.group(1))
+            name = mangled[end: end + int(m.group(1))]
+            if name.endswith("_kernel") and mangled[end + len(name):].startswith("I"):
+                rest = mangled[end + len(name) + 1:]
+                args = [a or b for a, b in re.findall(r"NS_\d+(\w+?)E|Li(\d+)E", rest.split("EEv")[0])]
+                return f"{name}<{', '.join(args)}>"
+        return mangled
 
     return {label(k): v for k, v in out.items()}
 
@@ -2964,6 +2980,34 @@ def g2_msm_inputs(dev, m: int):
     return g2_slice(E, live[torch.arange(m, device=dev) % 6]), random_below_r(np.random.default_rng(m), m, dev)
 
 
+def g2_forms() -> dict:
+    """K11's forms in this checkout (SCALAR_MUL_FORMS; a checkout without
+    them has one layout, called without a form)."""
+    from zkdl_tpu_torch.curve import g2
+
+    return getattr(g2, "SCALAR_MUL_FORMS", {"auto": 0})
+
+
+def windowed_forms() -> dict:
+    """K13's forms in this checkout (WINDOWED_FORMS; a checkout without
+    them has one layout, called without a form)."""
+    from zkdl_tpu_torch.curve import g1
+
+    return getattr(g1, "WINDOWED_FORMS", {"auto": 0})
+
+
+def g2_smul(pts, scal, form: str = "auto"):
+    from zkdl_tpu_torch.curve import g2
+
+    return g2.scalar_mul(pts, scal) if form == "auto" else g2.scalar_mul(pts, scal, form)
+
+
+def g1_windowed(pts, scal, form: str = "auto"):
+    from zkdl_tpu_torch.curve import g1
+
+    return g1.scalar_mul_windowed(pts, scal) if form == "auto" else g1.scalar_mul_windowed(pts, scal, form)
+
+
 def phase_tower_kernels(records: dict) -> None:
     """Phase 2's rows of K10-K13, each against its plain version on the card,
     bit for bit, and timed beside its bound:
@@ -3036,12 +3080,13 @@ def phase_tower_kernels(records: dict) -> None:
     big = max(G2_SIZES)
     rows = torch.arange(big, device=dev) % G2_PLAIN_ROWS
     pts_big, sc_big, want_big = g2_slice(base, rows), mp.take(sc, rows, 0), g2_words(g2_slice(want_edges, rows))
-    for m in G2_SIZES:
-        same(f"g2_scalar_mul n={m}", g2_words(g2.scalar_mul(g2_slice(pts_big, slice(0, m)), sc_big[:m])),
-             want_big[:m])
     small = scalar_words(0x1234567).to(dev)
-    same("g2_scalar_mul one scalar for all", g2_words(g2.scalar_mul(base, small)),
-         g2_words(g2.scalar_mul_plain(base, small)))
+    want_small = g2_words(g2.scalar_mul_plain(base, small))
+    for form in g2_forms():
+        for m in G2_SIZES:
+            same(f"g2_scalar_mul ({form}) n={m}",
+                 g2_words(g2_smul(g2_slice(pts_big, slice(0, m)), sc_big[:m], form)), want_big[:m])
+        same(f"g2_scalar_mul ({form}) one scalar for all", g2_words(g2_smul(base, small, form)), want_small)
     qE = g2_cat(E, g2.neg(E), g2_slice(E, torch.roll(torch.arange(8, device=dev), 1)), g2.identity((8,), dev))
     pE = g2_cat(E, E, E, E)
     radd = torch.arange(big, device=dev) % 32
@@ -3052,7 +3097,8 @@ def phase_tower_kernels(records: dict) -> None:
         part = g2_slice(pts_big, slice(0, m))
         with_plain = g2.G2Jac(*(g2.Fp2(f.c0.cpu(), f.c1.cpu()) for f in part))
         same(f"g2_sum n={m}", g2_words(g2.g2_sum(part)).cpu(), g2_words(g2.g2_sum(with_plain)))
-    log(f"[kernels] g2_scalar_mul (K11) bit-equal to plain at n = {', '.join(map(str, G2_SIZES))}: every scalar of "
+    log(f"[kernels] g2_scalar_mul (K11) bit-equal to plain in each form ({', '.join(g2_forms())}) at n = "
+        f"{', '.join(map(str, G2_SIZES))}: every scalar of "
         "0, 1, 2, 5, r-1, r, 2^256-1 and a random one on each of P, Q, R, O, P+(-P), 2P, P+Q, 2Q, then random "
         f"scalars ({G2_PLAIN_ROWS} plain rows, tiled; plain {pms_edges:.0f} ms), and one scalar for all; g2_add (K12) "
         "on p+p, p+(-p), p+O, O+q, O+O and distinct points, and g2_sum's tree (CPU plain) at each size")
@@ -3062,7 +3108,11 @@ def phase_tower_kernels(records: dict) -> None:
     for m in G2_MSM_SIZES:
         pts, scal = g2_msm_inputs(dev, m)
         smul = g2.scalar_mul(pts, scal)
-        ms = cuda_ms(lambda: g2.scalar_mul(pts, scal), 3)
+        for form in g2_forms():
+            if not torch.equal(g2_words(g2_smul(pts, scal, form)), g2_words(smul)):
+                raise AssertionError(f"g2_scalar_mul's forms disagree at {m} points")
+        forms_ms = {form: cuda_ms(lambda f=form: g2_smul(pts, scal, f), 3) for form in g2_forms()}
+        ms = forms_ms["auto"]
         bms, by = g2_bound(pts, scal)
         level = g2.pack(smul)[: 2 * (m // 2)].contiguous()
         pa, qa = g2.unpack(level[0::2]), g2.unpack(level[1::2])
@@ -3073,10 +3123,13 @@ def phase_tower_kernels(records: dict) -> None:
         ams = cuda_ms(lambda: g2.sum_level(level), 10)
         abms, aby = g2_add_bound(m // 2)
         total = cuda_ms(lambda: g2.msm(pts, scal), 2)
-        g2_shapes[f"{m} points"] = {"scalar_mul_ms": ms, "bound_ms": bms, "bound_by": by, "add_level_ms": ams,
+        g2_shapes[f"{m} points"] = {"scalar_mul_ms": ms, **{f"scalar_mul_ms_{f}": t for f, t in forms_ms.items()
+                                                            if f != "auto"},
+                                    "bound_ms": bms, "bound_by": by, "add_level_ms": ams,
                                     "add_level_plain_ms": apms, "add_level_bound_ms": abms,
                                     "add_level_bound_by": aby, "msm_ms": total}
-        log(f"[kernels] g2.msm at {m} points, random scalars below r: {total:.3f} ms; g2_scalar_mul {ms:.3f} ms (bound "
+        log(f"[kernels] g2.msm at {m} points, random scalars below r: {total:.3f} ms; g2_scalar_mul {ms:.3f} ms (forms: "
+            f"{', '.join(f'{f} {t:.3f}' for f, t in forms_ms.items() if f != 'auto')}; bound "
             f"{bms:.4f} ms by {by}, {100 * bms / ms:.1f}%), g2_add at its first tree level ({m // 2} pairs) "
             f"{ams:.4f} ms (plain {apms:.1f} ms, bound {abms:.5f} ms by {aby}), bit-equal to plain; no PyTorch call "
             "computes a G2 product")
@@ -3084,13 +3137,16 @@ def phase_tower_kernels(records: dict) -> None:
             records["g2_add"] = {"ms": ams, "plain_ms": apms, "bound_ms": abms, "bound_by": aby, "max_abs_err": aerr,
                                  "library_ms": None, "shape": f"the first tree level of g2.msm at {m} points"}
     # K11's record: the check set (its plain run above)
-    ms = cuda_ms(lambda: g2.scalar_mul(base, sc), 5)
+    forms_ms = {form: cuda_ms(lambda f=form: g2_smul(base, sc, f), 5) for form in g2_forms()}
+    ms = forms_ms["auto"]
     bms, by = g2_bound(base, sc)
     records["g2_scalar_mul"] = {"ms": ms, "plain_ms": pms_edges, "bound_ms": bms, "bound_by": by,
                                 "max_abs_err": max_abs_err(g2_words(g2.scalar_mul(base, sc)), g2_words(want_edges)),
                                 "library_ms": None, "shape": f"the {G2_PLAIN_ROWS}-point check set"}
-    log(f"[kernels] on the {G2_PLAIN_ROWS}-point check set: g2_scalar_mul {ms:.3f} ms (plain {pms_edges:.0f} ms, "
-        f"bound {bms:.5f} ms by {by}); bit-equal to plain")
+    g2_shapes["the check set"] = {"points": G2_PLAIN_ROWS, **{f"scalar_mul_ms_{f}": t for f, t in forms_ms.items()}}
+    log(f"[kernels] on the {G2_PLAIN_ROWS}-point check set: g2_scalar_mul {ms:.3f} ms (forms: "
+        f"{', '.join(f'{f} {t:.3f}' for f, t in forms_ms.items() if f != 'auto')}; plain {pms_edges:.0f} ms, "
+        f"bound {bms:.5f} ms by {by}, {100 * bms / ms:.1f}%); bit-equal to plain")
 
     # K13 on K5's edges
     n = max(VAR_SIZES)
@@ -3098,34 +3154,130 @@ def phase_tower_kernels(records: dict) -> None:
     raw[:, 7] %= np.uint32(fr.P_TOP_LIMB)
     pts, scw = g1_scalar_edge_set(dev, g1.generator_pow(torch.from_numpy(raw).to(dev)), raw, n)
     want, pms = plain_once(lambda: g1.scalar_mul_windowed_plain(pts, scw))
-    for m in VAR_SIZES:
-        idx = torch.arange(m, device=dev)
-        same_points(f"g1_scalar_mul_windowed n={m}", g1.scalar_mul_windowed(_points(pts, idx), scw[:m]),
-                    _points(want, idx))
+    for form in windowed_forms():
+        for m in VAR_SIZES:
+            idx = torch.arange(m, device=dev)
+            same_points(f"g1_scalar_mul_windowed ({form}) n={m}", g1_windowed(_points(pts, idx), scw[:m], form),
+                        _points(want, idx))
     ms = cuda_ms(lambda: g1.scalar_mul_windowed(pts, scw), 10)
     bms, by = windowed_bound(pts, scw)
     records["_g1_scalar_mul_windowed_edges"] = {"ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
                                                 "shape": f"the {n}-point check set"}
-    log(f"[kernels] g1_scalar_mul_windowed (K13) bit-equal to plain at n = {', '.join(map(str, VAR_SIZES))}, each "
+    log(f"[kernels] g1_scalar_mul_windowed (K13) bit-equal to plain in each form ({', '.join(windowed_forms())}) at "
+        f"n = {', '.join(map(str, VAR_SIZES))}, each "
         "set headed by the scalars 0, 1, r-1, the cofactor, 2^256-1, r and 2^256-r on G, a NUMS candidate, O and "
         f"(r^2, -r^3, 0), random after; at {n}: {ms:.4f} ms (plain {pms:.0f} ms, bound {bms:.4f} ms by {by})")
     # K13's record: phase 10's shape, held against plain there (phase 10 compares its own launch with this)
     label, (pts, scal) = next(iter(glv_time_sets(dev).items()))
     want, pms = plain_once(lambda: g1.scalar_mul_windowed_plain(pts, scal))
-    err = point_err(g1.scalar_mul_windowed(pts, scal), want)
+    err = max(point_err(g1_windowed(pts, scal, form), want) for form in windowed_forms())
     if err:
         raise AssertionError(f"g1_scalar_mul_windowed at {label}: max |err| {err}")
     records["_g1_scalar_mul_windowed_want"] = want
-    ms = cuda_ms(lambda: g1.scalar_mul_windowed(pts, scal), 10)
+    forms_ms = {form: cuda_ms(lambda f=form: g1_windowed(pts, scal, f), 10) for form in windowed_forms()}
+    ms = forms_ms["auto"]
     k8 = cuda_ms(lambda: g1.scalar_mul_glv(pts, scal), 10)
     k5 = cuda_ms(lambda: g1.scalar_mul(pts, scal), 3)
     bms, by = windowed_bound(pts, scal)
     records["g1_scalar_mul_windowed"] = {"ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
                                          "max_abs_err": err, "library_ms": None, "shape": label}
-    records["_g1_scalar_mul_windowed_msm"] = {"k8_ms": k8, "k5_ms": k5, "shape": label}  # beside K13's record
-    log(f"[kernels] g1_scalar_mul_windowed at {label}: {ms:.4f} ms (plain {pms:.0f} ms, bit-equal; bound {bms:.4f} "
-        f"ms by {by}, {100 * bms / ms:.1f}%); on the same inputs K8 {k8:.4f} ms, K5 {k5:.4f} ms")
+    records["_g1_scalar_mul_windowed_msm"] = {  # beside K13's record
+        "k8_ms": k8, "k5_ms": k5, "shape": label, **{f"ms_{f}": t for f, t in forms_ms.items() if f != "auto"}}
+    log(f"[kernels] g1_scalar_mul_windowed at {label}: {ms:.4f} ms (forms: "
+        f"{', '.join(f'{f} {t:.4f}' for f, t in forms_ms.items() if f != 'auto')}; plain {pms:.0f} ms, bit-equal in "
+        f"each form; bound {bms:.4f} ms by {by}, {100 * bms / ms:.1f}%); on the same inputs K8 {k8:.4f} ms, K5 "
+        f"{k5:.4f} ms")
     log(f"[time] K10-K13 against plain: {time.perf_counter() - t0:.1f}s")
+
+
+TOWER_TIME_SIZES = (G2_PLAIN_ROWS, 4096, VAR_MSM_POINTS)  # --tower-times' K11 launches
+TOWER_SWEEP = (256, 1024, 2048, 4096, 8192, 12288, 18432)  # --tower's launch sizes for the forms' crossovers
+
+
+def tower_form_sweep(dev) -> dict:
+    """K11 (g2_msm_inputs) and K13 (points from K4, random scalars below r)
+    in each form at each size of TOWER_SWEEP, every form's output equal to
+    the others', timed over 3 launches: where each form is fastest (auto's
+    thresholds in csrc/g2.cu and csrc/g1_team.cuh)."""
+    import torch
+    from zkdl_tpu_torch.curve import g1
+
+    rng = np.random.default_rng(17)
+    top = max(TOWER_SWEEP)
+    g1p, g1s = g1.generator_pow(random_below_r(rng, top, dev)), random_below_r(rng, top, dev)
+    out = {}
+    for n in TOWER_SWEEP:
+        pts, sc = g2_msm_inputs(dev, n)
+        ref = g2_words(g2_smul(pts, sc))
+        if any(not torch.equal(g2_words(g2_smul(pts, sc, f)), ref) for f in g2_forms()):
+            raise AssertionError(f"g2_scalar_mul's forms disagree at {n} points")
+        wp, ws = g1.G1Jac(*(c[:n] for c in g1p)), g1s[:n].contiguous()
+        wref = torch.cat(list(g1_windowed(wp, ws)))
+        if any(not torch.equal(torch.cat(list(g1_windowed(wp, ws, f))), wref) for f in windowed_forms()):
+            raise AssertionError(f"g1_scalar_mul_windowed's forms disagree at {n} points")
+        out[n] = {"g2_scalar_mul": {f: cuda_ms(lambda f=f: g2_smul(pts, sc, f), 3) for f in g2_forms()},
+                  "g1_scalar_mul_windowed": {f: cuda_ms(lambda f=f: g1_windowed(wp, ws, f), 3)
+                                             for f in windowed_forms()}}
+        log(f"[tower-sweep] {n} points: " + "; ".join(
+            f"{k} " + ", ".join(f"{f} {t:.4f} ms" for f, t in v.items()) for k, v in out[n].items()))
+    return out
+
+
+def phase_tower_times(dev) -> dict:
+    """K11 at TOWER_TIME_SIZES points (g2_msm_inputs: the edge batch's six
+    points that are not the identity, random scalars below r seeded by the
+    size), K12 on the first tree level of the largest, K13 at the verify's
+    MSM shape (glv_time_sets) beside K8 and K5 on the same inputs: each in
+    every form of this checkout, the forms' outputs equal, timed with CUDA
+    events (K11 5 launches, the others 10), beside its bound, with the
+    SHA-256 of auto's output limbs (equal across checkouts where the bits
+    are). Only functions that every checkout with K11-K13 has, so that two
+    checkouts can be timed in one call."""
+    import hashlib
+
+    import torch
+    from zkdl_tpu_torch.curve import g1, g2
+
+    def digest(t) -> str:
+        return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
+
+    out = {}
+    for m in TOWER_TIME_SIZES:
+        pts, scal = g2_msm_inputs(dev, m)
+        ref = g2_words(g2.scalar_mul(pts, scal))
+        for form in g2_forms():
+            if not torch.equal(g2_words(g2_smul(pts, scal, form)), ref):
+                raise AssertionError(f"g2_scalar_mul's forms disagree at {m} points")
+        rec = {f: cuda_ms(lambda f=f: g2_smul(pts, scal, f), 5) for f in g2_forms()}
+        bms, by = g2_bound(pts, scal)
+        rec.update(bound_ms=bms, bound_by=by, sha256=digest(ref))
+        out[f"g2_scalar_mul at {m} points"] = rec
+        log(f"[tower-times] g2_scalar_mul at {m} points: " +
+            ", ".join(f"{f} {t:.4f} ms" for f, t in rec.items() if f in g2_forms()) +
+            f"; bound {bms:.4f} ms by {by} ({100 * bms / rec['auto']:.1f}% of auto); sha256 {rec['sha256'][:16]}")
+        if m == VAR_MSM_POINTS:
+            level = g2.pack(g2.scalar_mul(pts, scal))
+            ms = cuda_ms(lambda: g2.sum_level(level), 10)
+            bms, by = g2_add_bound(m // 2)
+            out[f"g2_add at the first tree level of {m} points"] = {
+                "auto": ms, "bound_ms": bms, "bound_by": by, "sha256": digest(g2.sum_level(level))}
+            log(f"[tower-times] g2_add at the first tree level of {m} points ({m // 2} pairs): {ms:.4f} ms; bound "
+                f"{bms:.5f} ms by {by}")
+    label, (pts, scal) = next(iter(glv_time_sets(dev).items()))
+    ref = torch.cat(list(g1.scalar_mul_windowed(pts, scal)))
+    for form in windowed_forms():
+        if not torch.equal(torch.cat(list(g1_windowed(pts, scal, form))), ref):
+            raise AssertionError(f"g1_scalar_mul_windowed's forms disagree at {label}")
+    rec = {f: cuda_ms(lambda f=f: g1_windowed(pts, scal, f), 10) for f in windowed_forms()}
+    bms, by = windowed_bound(pts, scal)
+    rec.update(bound_ms=bms, bound_by=by, sha256=digest(ref), k8_ms=cuda_ms(lambda: g1.scalar_mul_glv(pts, scal), 10),
+               k5_ms=cuda_ms(lambda: g1.scalar_mul(pts, scal), 3))
+    out[f"g1_scalar_mul_windowed at {label}"] = rec
+    log(f"[tower-times] g1_scalar_mul_windowed at {label}: " +
+        ", ".join(f"{f} {t:.4f} ms" for f, t in rec.items() if f in windowed_forms()) +
+        f"; bound {bms:.4f} ms by {by} ({100 * bms / rec['auto']:.1f}% of auto); K8 {rec['k8_ms']:.4f} ms, K5 "
+        f"{rec['k5_ms']:.4f} ms on the same inputs; sha256 {rec['sha256'][:16]}")
+    return out
 
 
 def attention_scores(dev):
@@ -3295,7 +3447,7 @@ def main() -> int:
         args, k8_file = [], args[1]
     elif len(args) == 2 and args[0] == "--glv-times":  # and replaying it
         args, k8_file = args[:1], args[1]
-    times_only = args in (["--comb"], ["--var-times"], ["--k7-times"], ["--glv-times"])
+    times_only = args in (["--comb"], ["--var-times"], ["--k7-times"], ["--glv-times"], ["--tower-times"])
     phase_build(host_library=not times_only, check_spills=not times_only)
     dev = torch.device("cuda")
     if args[:1] == ["--sharded"]:
@@ -3321,6 +3473,9 @@ def main() -> int:
     if args == ["--glv-times"]:
         print(json.dumps({"g1_scalar_mul_glv_times": phase_glv_times(dev, k8_file)}), flush=True)
         return 0
+    if args == ["--tower-times"]:
+        print(json.dumps({"tower_times": phase_tower_times(dev)}), flush=True)
+        return 0
     if args == ["--attention"]:
         phase_k7(records)
         phase_attention(records)
@@ -3336,9 +3491,10 @@ def main() -> int:
     if args == ["--tower"]:
         phase_tower_kernels(records)
         phase_tower(records)
-        print(json.dumps({k: records[k] for k in ("fr_ntt", "g2_scalar_mul", "g2_add", "g1_scalar_mul_windowed",
-                                                  "_fr_ntt_shapes", "_g2_shapes", "_g1_scalar_mul_windowed_edges",
-                                                  "_g1_scalar_mul_windowed_msm", "_tower")}), flush=True)
+        print(json.dumps({**{k: records[k] for k in ("fr_ntt", "g2_scalar_mul", "g2_add", "g1_scalar_mul_windowed",
+                                                     "_fr_ntt_shapes", "_g2_shapes", "_g1_scalar_mul_windowed_edges",
+                                                     "_g1_scalar_mul_windowed_msm", "_tower")},
+                          "tower_forms": tower_form_sweep(dev)}), flush=True)
         return 0
     if args == ["--var"]:
         phase_var(dev, records)

@@ -26,7 +26,9 @@ from zkdl_tpu_torch.field import fp, fr, mp
 
 LAMBDA = g1._LAMBDA_INT
 U32 = (1 << 32) - 1
-GLV_SRC = (pathlib.Path(g1.__file__).resolve().parents[1] / "csrc" / "g1_glv.cu").read_text()
+CSRC = pathlib.Path(g1.__file__).resolve().parents[1] / "csrc"
+# K8's kernel and the layouts' formulas and table build it shares with K13
+GLV_SRC = (CSRC / "g1_glv.cu").read_text() + (CSRC / "g1_team.cuh").read_text()
 P = fp.P_INT
 
 
@@ -201,10 +203,10 @@ SCHEDULES = {"two": "T", "four": "Four"}
 
 
 def _glv_statements(name: str, schedule: str = "two") -> list[str]:
-    """The statements of g1_glv.cu's `name` in a schedule."""
+    """The statements of `name` (g1_glv.cu or g1_team.cuh) in a schedule."""
     m = re.search(rf"__device__ __forceinline__ \w+ {name}\(const {SCHEDULES[schedule]}& tm,[^)]*\) \{{\n(.*?)\n\}}\n",
                   GLV_SRC, re.S)
-    assert m, f"{name} ({schedule}) not found in g1_glv.cu"
+    assert m, f"{name} ({schedule}) not found in g1_glv.cu or g1_team.cuh"
     body = re.sub(r"//[^\n]*", "", m.group(1))
     return [" ".join(s.split()) for s in body.split(";") if s.strip()]
 
@@ -409,7 +411,7 @@ def test_k8_walk_model_gives_the_jax_limbs():
 
 
 def test_kernel_source_matches_the_walk_model():
-    """The statements of g1_glv.cu that _k8_model mirrors."""
+    """The statements of g1_glv.cu and g1_team.cuh that _k8_model mirrors."""
     src = " ".join(GLV_SRC.split())
     for line in ("if (w < start) {", "for (int j = 0; j < 4; ++j) out = G::dbl(tm, out);",
                  "for (int t = 0; t < 2; ++t) out = G::add(tm, out, Shared{t ? e1 : e0});",

@@ -2,7 +2,7 @@
 and G2 (``curve/g2.py``: double, add, add_mixed, neg, scalar_mul, g2_sum,
 msm, the plain versions of K11 and K12) against the JAX package's
 ``field/fp2.py`` and ``curve/g2.py``, recorded by ``record_slice14.py``;
-and a word-level model of K11's Fp2 product and squaring
+and a word-level model of K12's Fp2 product and squaring
 (``csrc/jac.cuh:F2``) on ``csrc/fp_chain.cuh``'s lazy bound."""
 
 import numpy as np
@@ -168,7 +168,7 @@ def test_g2_pack_roundtrip_and_device_rules():
 
 
 # ---------------------------------------------------------------------------
-# K11's Fp2 product on fp_chain.cuh's lazy values
+# K12's Fp2 product on fp_chain.cuh's lazy values
 # ---------------------------------------------------------------------------
 
 JAC = " ".join((build.CSRC / "jac.cuh").read_text().split())

@@ -1,12 +1,11 @@
-// Jacobian point formulas over Fp (G1) and Fp2 (G2) for one thread a point:
-// the device side of K11 and K12 (csrc/g2.cu) and K13 (csrc/g1_win.cu).
+// Jacobian point formulas over Fp2 (G2) for one thread a point: the device
+// side of K12 (csrc/g2.cu).
 //
-// The formulas are the JAX package's, value for value (zkdl_tpu/curve/g1.py
-// :90-132 and curve/g2.py:73-112, the same EFD formulas over the two
-// fields): dbl-2009-l, whose identity (z = 0) is returned as it is, and
-// add-2007-bl with its selects in g1.py's order (equal points double(p),
-// q == O gives p, p == O gives q; p + (-p) runs the generic formula to
-// z = 0). Their results are fixed down to the limb, so each must be those
+// The formulas are the JAX package's, value for value (zkdl_tpu/curve/g2.py
+// :73-112, g1.py's EFD formulas over Fp2): dbl-2009-l, whose identity
+// (z = 0) is returned as it is, and add-2007-bl with its selects in g1.py's
+// order (equal points double(p), q == O gives p, p == O gives q; p + (-p)
+// runs the generic formula to z = 0). Their results are fixed down to the limb, so each must be those
 // formulas; how a value is computed is free. Inside a formula the values
 // are lazy (csrc/fp_chain.cuh, K8's carry-chain Fp product: products, sums
 // and differences below 2p); every value a formula returns, and every value
@@ -19,19 +18,6 @@
 #include "fp_chain.cuh"
 
 namespace {
-
-// Fp: K8's lazy ops
-struct F1 {
-  using T = Fq;
-  __device__ __forceinline__ static T add(const T& a, const T& b) { return add_lazy(a, b); }
-  __device__ __forceinline__ static T sub(const T& a, const T& b) { return sub_lazy(a, b); }
-  __device__ __forceinline__ static T dbl(const T& a) { return add_lazy(a, a); }
-  __device__ __forceinline__ static T mul(const T& a, const T& b) { return mont_mul(a, b); }
-  __device__ __forceinline__ static T sqr(const T& a) { return mont_mul(a, a); }
-  __device__ __forceinline__ static T canon(const T& a) { return ::canon(a); }
-  __device__ __forceinline__ static bool zero(const T& a) { return FqOps::zero(a); }  // canonical
-  __device__ __forceinline__ static bool eq(const T& a, const T& b) { return FqOps::eq(a, b); }
-};
 
 struct Fq2 {
   Fq c0, c1;

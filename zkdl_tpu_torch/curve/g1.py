@@ -35,10 +35,10 @@ runs ``scalar_mul_glv_plain``.
 
 ``scalar_mul_windowed`` on CUDA tensors launches K13 (``csrc/g1_win.cu``),
 which replaces the XLA loop of g1.py:scalar_mul_windowed (:187-214) limb
-for limb: a point's 16-entry table built by generic adds, then 64 4-bit
-windows from the top, four doubles and one add each, one thread a point on
-K8's carry-chain Fp product. On CPU tensors it runs
-``scalar_mul_windowed_plain``.
+for limb: a point's 16-entry table, then 64 4-bit windows from the top,
+four doubles and one add each, on K8's lane teams and formulas
+(``csrc/g1_team.cuh``) in the forms of ``WINDOWED_FORMS``. On CPU tensors
+it runs ``scalar_mul_windowed_plain``.
 """
 
 from __future__ import annotations
@@ -80,6 +80,9 @@ SCALAR_MUL_FORMS = {"auto": 0, "warp": 1, "quad": 2, "pair": 3}
 # memory, two lanes a point with the tables in a device scratch; chosen by
 # the launch's size, or forced
 GLV_FORMS = {"auto": 0, "four": 1, "pair": 2}
+# K13's forms (csrc/g1_win.cu): K8's layouts with one table a point, in
+# shared memory (four) or in a device scratch (pair)
+WINDOWED_FORMS = {"auto": 0, "four": 1, "pair": 2}
 
 _COMB_W = 4
 _COMB_WINDOWS = 256 // _COMB_W
@@ -685,17 +688,22 @@ def _win_lib() -> ctypes.CDLL:
     lib = build.load("g1_win")
     if not getattr(lib, "_zk_typed", False):
         P, I = ctypes.c_void_p, ctypes.c_longlong
-        lib.zk_g1_windowed.argtypes = [P, P, P, I, P, P, P, P, I, P, ctypes.c_int]
+        lib.zk_g1_windowed.argtypes = [ctypes.c_int, P, P, P, I, P, P, P, P, P, I, P, ctypes.c_int]
         lib.zk_g1_windowed.restype = ctypes.c_int
+        lib.zk_g1_windowed_scratch_words.argtypes = [ctypes.c_int, I, ctypes.c_int]
+        lib.zk_g1_windowed_scratch_words.restype = I
         lib._zk_typed = True
     return lib
 
 
-def scalar_mul_windowed(p: G1Jac, scalar: torch.Tensor) -> G1Jac:
+def scalar_mul_windowed(p: G1Jac, scalar: torch.Tensor, form: str = "auto") -> G1Jac:
     """scalar * p by g1.py:scalar_mul_windowed's fixed 4-bit windows (its
     default window), limb for limb (group-equal to scalar_mul, not
     limb-equal). scalar: raw uint32 (*p.shape, 8), one per point. K13 on
-    CUDA tensors, the plain version on CPU ones."""
+    CUDA tensors, in the form ``form`` (a key of WINDOWED_FORMS; every form
+    gives the same bits), with a device scratch for its tables (2304 bytes
+    a point) where the form keeps them there; the plain version on CPU
+    ones."""
     _check_points(p)
     shape = p.shape
     if scalar.dtype != torch.uint32 or tuple(scalar.shape) != (*shape, 8):
@@ -705,8 +713,15 @@ def scalar_mul_windowed(p: G1Jac, scalar: torch.Tensor) -> G1Jac:
         out = scalar_mul_windowed_plain(p, scalar)
     else:
         pr, ps = _rows_and_stride(p)
-        out = _launch(WINDOWED, _win_lib().zk_g1_windowed, dev, pr.x.shape[0], *(c.data_ptr() for c in pr), ps,
-                      scalar.reshape(-1, 8).contiguous().data_ptr())
+        n = pr.x.shape[0]
+        sc = scalar.reshape(-1, 8).contiguous()
+        lib = _win_lib()
+        words = lib.zk_g1_windowed_scratch_words(WINDOWED_FORMS[form], n, dev.index)
+        if words < 0:
+            raise RuntimeError(f"{WINDOWED.name}: no scratch size for form {form!r} on {dev}")
+        table = torch.empty(words, dtype=torch.uint32, device=dev) if words else None
+        out = _launch(WINDOWED, functools.partial(lib.zk_g1_windowed, WINDOWED_FORMS[form]), dev, n,
+                      *(c.data_ptr() for c in pr), ps, sc.data_ptr(), None if table is None else table.data_ptr())
     return G1Jac(*(c.reshape(*shape, 12) for c in out))
 
 

@@ -12,10 +12,12 @@ the identity. No point needs to lie in the r-torsion subgroup
 ``scalar_mul`` on CUDA tensors launches K11 and ``add`` (with ``g2_sum``'s
 tree levels and so ``msm``) K12, both in ``csrc/g2.cu``: the formulas of
 g2.py:double (:73-83), add (:86-112) and scalar_mul (:148-161) value for
-value, so the Jacobian limbs equal the JAX package's. On CPU tensors they
-run ``scalar_mul_plain``/``add_plain``, the same formulas over the plain
-Fp2 ops of ``field/fp2.py``. ``double`` and ``add_mixed`` have no kernel
-(the JAX package runs them only inside those loops and in tests).
+value, so the Jacobian limbs equal the JAX package's. K11 runs a point on
+a team of lanes (4, 8 or 16: ``SCALAR_MUL_FORMS``) from the programs of
+``csrc/g2_prog.cuh`` (``curve/g2_program.py``). On CPU tensors they run
+``scalar_mul_plain``/``add_plain``, the same formulas over the plain Fp2
+ops of ``field/fp2.py``. ``double`` and ``add_mixed`` have no kernel (the
+JAX package runs them only inside those loops and in tests).
 """
 
 from __future__ import annotations
@@ -56,6 +58,9 @@ B_COEFF = (4, 4)  # 4(1 + u): the M-twist constant
 SCALAR_MUL = Kernel("g2_scalar_mul", "zkdl_tpu_torch/csrc/g2.cu", "zkdl_tpu/curve/g2.py:148")
 ADD = Kernel("g2_add", "zkdl_tpu_torch/csrc/g2.cu", "zkdl_tpu/curve/g2.py:86")
 KERNELS = (SCALAR_MUL, ADD)
+# K11's forms (csrc/g2.cu): 4, 8 or 16 lanes a point; chosen by the
+# launch's size, or forced
+SCALAR_MUL_FORMS = {"auto": 0, "four": 1, "eight": 2, "sixteen": 3}
 
 _PLAIN_CHUNK = 1 << 12  # points per step of the plain versions (bounds their temporaries)
 
@@ -254,7 +259,9 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("g2")
     if not getattr(lib, "_zk_typed", False):
         P, I = ctypes.c_void_p, ctypes.c_longlong
-        lib.zk_g2_scalar_mul.argtypes = [P, P, I, P, I, P, ctypes.c_int]
+        lib.zk_g2_scalar_mul.argtypes = [ctypes.c_int, P, P, I, P, P, I, P, ctypes.c_int]
+        lib.zk_g2_scalar_mul_scratch_words.argtypes = [I]
+        lib.zk_g2_scalar_mul_scratch_words.restype = I
         lib.zk_g2_add.argtypes = [P, I, P, I, P, I, P, ctypes.c_int]
         lib.zk_g2_scalar_mul.restype = lib.zk_g2_add.restype = ctypes.c_int
         lib._zk_typed = True
@@ -311,11 +318,12 @@ def add(p: G2Jac, q: G2Jac) -> G2Jac:
     return _shaped(unpack(out), shape)
 
 
-def scalar_mul(p: G2Jac, scalar: torch.Tensor) -> G2Jac:
+def scalar_mul(p: G2Jac, scalar: torch.Tensor, form: str = "auto") -> G2Jac:
     """scalar * p by g2.py:scalar_mul's LSB-first double-and-add (limb for
     limb). scalar: raw (non-Montgomery) uint32, one per point (*p.shape, 8)
-    or one (8,) for all. K11 on CUDA tensors, the plain version on CPU
-    ones."""
+    or one (8,) for all. K11 on CUDA tensors, in the form ``form`` (a key of
+    SCALAR_MUL_FORMS; every form gives the same bits), with a device scratch
+    for its rings (4608 bytes a point); the plain version on CPU ones."""
     dev = _check(p)
     shape = p.shape
     if scalar.dtype != torch.uint32 or scalar.shape[-1] != 8 or scalar.device != dev or (
@@ -325,8 +333,10 @@ def scalar_mul(p: G2Jac, scalar: torch.Tensor) -> G2Jac:
         return _shaped(scalar_mul_plain(p, scalar), shape)
     a = pack(p)
     sc = scalar.reshape(-1, 8).contiguous()
-    out = _run(SCALAR_MUL, _lib().zk_g2_scalar_mul, dev, a.shape[0], a.data_ptr(), sc.data_ptr(),
-               0 if scalar.dim() == 1 else 8)
+    lib = _lib()
+    ring = torch.empty(lib.zk_g2_scalar_mul_scratch_words(a.shape[0]), dtype=torch.uint32, device=dev)
+    out = _run(SCALAR_MUL, functools.partial(lib.zk_g2_scalar_mul, SCALAR_MUL_FORMS[form]), dev, a.shape[0],
+               a.data_ptr(), sc.data_ptr(), 0 if scalar.dim() == 1 else 8, ring.data_ptr())
     return _shaped(unpack(out), shape)
 
 
